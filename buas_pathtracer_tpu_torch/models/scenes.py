@@ -1,0 +1,42 @@
+"""Built-in scenes of the port.
+
+``build_bench_scene`` is the frame that the repository's ``bench.py``
+measures (bench.py:68-95): three instances of a 20,480-triangle icosphere
+(61,440 triangles), a box ground and two spherical lights, rendered with the
+Advanced Pathtracer at 8 bounces and 1 spp.  The JAX package's twelve
+built-in scenes (its models/scenes.py) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core import vec
+from ..utils.procgen import icosphere
+from . import camera as cm
+from .materials import Material
+from .scene import Scene, SceneSettings
+
+
+def build_bench_scene(w: int, h: int) -> Scene:
+    sc = Scene(name="bench")
+    ground = sc.add_diffuse_material((0.55, 0.55, 0.55), 1.0, 0.0, True)
+    blue = sc.add_diffuse_material((0.25, 0.35, 0.8), 1.3)
+    metal = sc.add_material(Material(albedo=(0.85, 0.85, 0.85), ior=1.5,
+                                     metallic=1.0))
+    glass = sc.add_translucent_material((0.3, 0.1, 0.05), 1.5)
+    light = sc.add_emissive_material((80.0, 80.0, 72.0))
+
+    mesh = icosphere(subdivisions=5)  # 20480 triangles
+    sc.add_mesh(blue, mesh, vec.translate([0, 2.0, 0]) * vec.scale(2.0))
+    sc.add_mesh(metal, mesh, vec.translate([-4.5, 1.5, 2]) * vec.scale(1.5))
+    sc.add_mesh(glass, mesh, vec.translate([4.5, 1.5, -1]) * vec.scale(1.5))
+    sc.add_box(ground, (30, 1, 30), vec.translate([0, -1.0, 0]))
+    sc.add_sphere(light, 2.0, vec.translate([0, 14.0, 6]))
+    sc.add_sphere(light, 1.0, vec.translate([-8, 10.0, -6]))
+
+    cam = cm.make_camera(p=(0, 4, -12), vfov=np.radians(45), aspect=w / h)
+    sc.camera = cm.aim_camera_at(cam, (0, 1.8, 0))
+    sc.settings = SceneSettings(max_bounce_count=8, samples_per_pixel=1,
+                                integrator="Advanced Pathtracer")
+    return sc

@@ -1,0 +1,145 @@
+"""Frame renderer: full-frame wavefront passes.
+
+Counterpart of ``buas_pathtracer_tpu/runtime/render.py``.  One pass renders
+one sample for every pixel as a single batched wavefront; ``samples_per_pixel``
+passes make a frame, and frames accumulate progressively like the
+reference's AccumulationBuffer (frame_count == accumulated spp, canonical
+sample index raytracer.cpp:429-439).
+
+Rays are ordered in pixel tiles (``_tiled``): a contiguous run of rays is a
+compact screen tile, which keeps neighbouring GPU threads on neighbouring
+pixels.  The output does not depend on the order; every per-ray draw keys
+off the pixel coordinates carried with the ray.
+
+Only the Advanced Pathtracer is ported; the other integrators of the JAX
+package raise (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from ..core import sampler as smp
+from ..core.device import check_on, resolve_device
+from ..core.vec import Vec3
+from ..integrators import advanced as adv
+from ..models.camera import Camera, camera_on, generate_rays
+from ..models.scene import PackedScene, Scene, SceneSettings
+from ..ops.filters import find_filter
+from . import film
+
+INTEGRATORS: Dict[str, Callable] = {
+    "Advanced Pathtracer": adv.advanced,
+}
+_UNPORTED = ("Whitted", "Ground Truth Recursive", "Ground Truth Iterative",
+             "Normals", "Distances")
+
+
+def find_integrator(name: str) -> Callable:
+    """integrators.cpp:834-845: the default integrator if the name is
+    unknown; the JAX package's other integrators are not ported yet."""
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"integrator {name!r} is not ported yet (ROADMAP.md, queue 1)")
+    return INTEGRATORS.get(name, adv.advanced)
+
+
+# Candidate tile shapes, squarest first; 1080p lands on (8, 128)
+_TILE_SHAPES = ((32, 32), (16, 64), (8, 128), (4, 256))
+
+
+def _tile_shape(h, w):
+    for th, tw in _TILE_SHAPES:
+        if h % th == 0 and w % tw == 0:
+            return th, tw
+    return None
+
+
+def _tiled(x2d):
+    h, w = x2d.shape
+    shape = _tile_shape(h, w)
+    if shape is None:
+        return x2d.reshape(-1)  # odd sizes: scanline order
+    th, tw = shape
+    return (x2d.reshape(h // th, th, w // tw, tw)
+            .permute(0, 2, 1, 3).reshape(-1))
+
+
+def _untiled(flat, h, w):
+    shape = _tile_shape(h, w)
+    if shape is None:
+        return flat.reshape(h, w)
+    th, tw = shape
+    return (flat.reshape(h // th, w // tw, th, tw)
+            .permute(0, 2, 1, 3).reshape(h, w))
+
+
+def render_frame(ps: PackedScene, settings: SceneSettings, cam: Camera,
+                 accum: torch.Tensor, frame_index: int, *, h: int, w: int,
+                 n_lights: int, filter_name: str = "Mitchell Netravali",
+                 device=None):
+    """Accumulate ``settings.samples_per_pixel`` full-frame sample passes.
+
+    frame_index: accumulated samples so far (host int).  Returns the new
+    accumulation buffer and stats (3,) [rays, node visits, triangle tests].
+    ``device`` (None: the CUDA card) must hold ``ps`` and ``accum``."""
+    dev = resolve_device(device)
+    check_on(dev, ps.wide_rows, "scene")
+    check_on(dev, accum, "accum")
+    dev = accum.device
+    integrator = find_integrator(settings.integrator)
+    filt = find_filter(filter_name)
+    strategy = int(settings.sampling_strategy)
+    cam = camera_on(cam, dev)
+
+    py_, px_ = torch.meshgrid(torch.arange(h, device=dev),
+                              torch.arange(w, device=dev), indexing="ij")
+    px = _tiled(px_)
+    py = _tiled(py_)
+
+    stats = torch.zeros(3, dtype=torch.float32, device=dev)
+    for s_i in range(int(settings.samples_per_pixel)):
+        sampler = smp.make_sampler(px, py, int(frame_index) + s_i,
+                                   strategy=strategy)
+        sampler, aa_u, aa_v = smp.sample_2d(sampler, strategy,
+                                            smp.SampleDimension.AA, 0)
+        sampler, dof_u, dof_v = smp.sample_2d(sampler, strategy,
+                                              smp.SampleDimension.DOF, 0)
+        rays = generate_rays(
+            cam, px, py, w, h, aa_u, aa_v, dof_u, dof_v,
+            settings.lens_distortion, settings.f_factor,
+            settings.diaphragm_edges, settings.phi_shutter_max,
+            settings.vignette_strength)
+        color, sampler, st_ = integrator(ps, settings, sampler, rays.o,
+                                         rays.d, n_lights=n_lights)
+        stats = stats + st_
+        color = color * rays.vignette
+
+        color_img = Vec3(_untiled(color.x, h, w), _untiled(color.y, h, w),
+                         _untiled(color.z, h, w))
+        jx = _untiled(aa_u - 0.5, h, w)
+        jy = _untiled(aa_v - 0.5, h, w)
+        accum = film.accumulate(accum, film.splat_pass(color_img, jx, jy,
+                                                       filt))
+    return accum, stats
+
+
+def render(scene: Scene, w: int, h: int, frames: int = 1,
+           filter_name: str = "Mitchell Netravali", device=None):
+    """Host loop: pack, render ``frames`` frames, resolve.
+
+    Returns (hdr (H, W, 3) float32 numpy, accum (H, W, 4), stats (3,))."""
+    dev = resolve_device(device)
+    ps = scene.pack(device=dev)
+    accum = film.new_accumulation_buffer(h, w, dev)
+    spp = int(scene.settings.samples_per_pixel)
+    stats = torch.zeros(3, dtype=torch.float32, device=dev)
+    for f_i in range(frames):
+        accum, st_ = render_frame(ps, scene.settings, scene.camera, accum,
+                                  f_i * spp, h=h, w=w,
+                                  n_lights=scene.n_lights,
+                                  filter_name=filter_name, device=dev)
+        stats = stats + st_
+    return film.resolve(accum).cpu().numpy(), accum, stats
