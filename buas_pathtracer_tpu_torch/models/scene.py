@@ -8,10 +8,11 @@ automatic light registration for emissive primitives.
 ``Scene.pack(device=None)`` lowers the scene to ``PackedScene``, a NamedTuple
 of tensors on one device, holding the fields the bench frame reads:
 materials, planes, primitives, lights, the 8-wide row table and its
-per-triangle normals, and the sky.  Every table the JAX package also packs
-is byte-equal to it (``tests/test_torch_scene.py``).  The JAX package's
-threaded-BVH fields, triangle soup, environment maps and leaf-DMA split
-tables are not ported; a scene with an ``env_map`` raises.
+per-triangle normals, the sky, and for big scenes the split traversal tables
+(``v4_res``, ``v4_leaf``).  Every table the JAX package also packs is
+byte-equal to it (``tests/test_torch_scene.py``, ``test_torch_split.py``).
+The JAX package's threaded-BVH fields, triangle soup and environment maps are
+not ported; a scene with an ``env_map`` raises.
 """
 
 from __future__ import annotations
@@ -127,6 +128,12 @@ class PackedScene(NamedTuple):
     sky_top: Vec3
     ambient_light: Vec3
 
+    # split traversal tables (ops/wide_bvh.split_for_dma), present when the
+    # unified table exceeds packet.RESIDENT_TABLE_LIMIT_BYTES; the JAX
+    # package's names
+    v4_res: Optional[torch.Tensor] = None  # (Ri, 64) f32 resident rows
+    v4_leaf: Optional[torch.Tensor] = None  # (L, 128) f32 merged leaf rows
+
     @property
     def n_lights(self) -> int:
         return int(self.light_prim.shape[0])
@@ -213,12 +220,19 @@ class Scene:
                               mesh_id=len(self.meshes) - 1)
 
     # -- packing ------------------------------------------------------------
-    def pack(self, device=None, bvh_method: str = "sah_binned") -> PackedScene:
+    def pack(self, device=None, bvh_method: str = "sah_binned",
+             split: Optional[bool] = None) -> PackedScene:
+        """``split`` None: build the split tables when the unified table's
+        bytes exceed ``packet.RESIDENT_TABLE_LIMIT_BYTES``; True / False
+        forces the choice (a scene whose root is a triangle leaf or empty
+        never splits)."""
         dev = resolve_device(device)
         if self.env_map is not None:
             raise NotImplementedError(
                 "environment maps are not ported yet (ROADMAP.md, queue 1)")
-        return _to_device(self._pack_arrays(bvh_method), dev)
+        arrays = self._pack_arrays(bvh_method)
+        arrays.update(_split_tables(arrays["wide_rows"], split))
+        return _to_device(arrays, dev)
 
     def _pack_arrays(self, bvh_method: str = "sah_binned") -> Dict:
         """The packed tables as numpy arrays (``pack`` moves them)."""
@@ -336,10 +350,25 @@ _VEC3_FIELDS = ("mat_albedo", "mat_checker", "mat_emission", "mat_absorb",
 _INDEX_FIELDS = ("plane_mat", "prim_type", "prim_mat", "light_prim")
 
 
+def _split_tables(rows: np.ndarray, split: Optional[bool]) -> Dict:
+    """Counterpart of the JAX ``Scene._v4_split`` (scene.py:467-481), with
+    the port's own residence limit in place of the TPU's VMEM budget."""
+    from ..ops import packet, wide_bvh
+    if split is None:
+        split = rows.nbytes > packet.RESIDENT_TABLE_LIMIT_BYTES
+    if not split or int(rows[0, 0]) not in (wide_bvh.KIND_INTERNAL,
+                                           wide_bvh.KIND_PRIM):
+        return {}
+    res, leaf = wide_bvh.split_for_dma(rows)
+    return {"v4_res": res, "v4_leaf": leaf}
+
+
 def _to_device(arrays: Dict, dev: torch.device) -> PackedScene:
     out = {}
     for name in PackedScene._fields:
-        a = arrays[name]
+        a = arrays.get(name)
+        if a is None and name in PackedScene._field_defaults:
+            continue
         if name == "wide_depth":
             out[name] = int(a)
             continue
@@ -363,13 +392,16 @@ def from_jax_arrays(arrays: Dict[str, np.ndarray], device) -> PackedScene:
     ``arrays`` maps the JAX ``PackedScene`` field names to numpy arrays, as
     ``{k: np.asarray(v) for k, v in jax_ps._asdict().items()}`` makes them:
     a Vec3 field arrives as a (3, ...) array, and ``wide_depth_arr`` carries
-    the tree depth as its length.  Fields the port does not use are ignored.
+    the tree depth as its length.  The optional split tables may be absent.
+    Fields the port does not use are ignored.
     The tests run both packages on identical tables this way."""
     dev = resolve_device(device)
     conv = {}
     for name in PackedScene._fields:
         if name == "wide_depth":
             conv[name] = int(np.asarray(arrays["wide_depth_arr"]).shape[0])
+            continue
+        if arrays.get(name) is None and name in PackedScene._field_defaults:
             continue
         a = np.asarray(arrays[name])
         if name in _VEC3_FIELDS:

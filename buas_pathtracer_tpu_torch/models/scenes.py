@@ -3,8 +3,13 @@
 ``build_bench_scene`` is the frame that the repository's ``bench.py``
 measures (bench.py:68-95): three instances of a 20,480-triangle icosphere
 (61,440 triangles), a box ground and two spherical lights, rendered with the
-Advanced Pathtracer at 8 bounces and 1 spp.  The JAX package's twelve
-built-in scenes (its models/scenes.py) are not ported yet.
+Advanced Pathtracer at 8 bounces and 1 spp.  ``build_stress_scene`` is
+``bench.py``'s scale scene (bench.py:98-120, ``BENCH_SCENE=stress``): two
+instances of a 327,680-triangle icosphere (655,360 triangles), a box ground
+and one spherical light at 6 bounces; its unified row table exceeds the
+residence limit, so it packs split tables and renders through the split
+walk.  The JAX package's twelve built-in scenes (its models/scenes.py) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -38,5 +43,22 @@ def build_bench_scene(w: int, h: int) -> Scene:
     cam = cm.make_camera(p=(0, 4, -12), vfov=np.radians(45), aspect=w / h)
     sc.camera = cm.aim_camera_at(cam, (0, 1.8, 0))
     sc.settings = SceneSettings(max_bounce_count=8, samples_per_pixel=1,
+                                integrator="Advanced Pathtracer")
+    return sc
+
+
+def build_stress_scene(w: int, h: int) -> Scene:
+    sc = Scene(name="stress")
+    grey = sc.add_diffuse_material((0.6, 0.6, 0.6), 1.2)
+    red = sc.add_diffuse_material((0.75, 0.25, 0.2), 1.4)
+    light = sc.add_emissive_material((60.0, 60.0, 55.0))
+    mesh = icosphere(subdivisions=7)  # 327,680 triangles
+    sc.add_mesh(grey, mesh, vec.translate([-2.2, 2.0, 0]) * vec.scale(2.0))
+    sc.add_mesh(red, mesh, vec.translate([2.2, 1.5, 1.0]) * vec.scale(1.5))
+    sc.add_box(grey, (20, 1, 20), vec.translate([0, -1.0, 0]))
+    sc.add_sphere(light, 1.5, vec.translate([0, 12.0, 4]))
+    cam = cm.make_camera(p=(0, 3.5, -9), vfov=np.radians(50), aspect=w / h)
+    sc.camera = cm.aim_camera_at(cam, (0, 1.8, 0))
+    sc.settings = SceneSettings(max_bounce_count=6, samples_per_pixel=1,
                                 integrator="Advanced Pathtracer")
     return sc

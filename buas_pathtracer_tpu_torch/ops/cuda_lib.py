@@ -25,7 +25,8 @@ import threading
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
-SOURCES = ("wide_traverse.cu", "post.cu")
+SOURCES = ("wide_traverse.cu", "split_traverse.cu", "tristream.cu",
+           "post.cu")
 # -fmad=false: no fused multiply-add, so the kernels round like the unfused
 # PyTorch ops of their plain versions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -104,6 +105,15 @@ def load():
             vp, vp, vp, vp, vp, vp, vp]
         lib.wide_traverse_max_stack.restype = ci
         lib.wide_traverse_max_stack.argtypes = []
+        lib.split_traverse_launch.restype = ci
+        lib.split_traverse_launch.argtypes = [
+            vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+            vp, vp, vp, vp, vp, vp, vp]
+        lib.split_traverse_max_stack.restype = ci
+        lib.split_traverse_max_stack.argtypes = []
+        lib.tristream_closest_launch.restype = ci
+        lib.tristream_closest_launch.argtypes = [
+            vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
         lib.post_rgba8_launch.restype = ci
         lib.post_rgba8_launch.argtypes = [
             vp, vp, vp, ci, ci, cf, cf, cf, cf, cf, cf, ci, ci, ci, ci, ci,

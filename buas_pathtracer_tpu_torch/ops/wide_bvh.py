@@ -1,9 +1,9 @@
 """8-wide BVH with self-describing 256-byte rows: the traversal structure.
 
 Counterpart of ``buas_pathtracer_tpu/ops/wide_bvh.py``: ``build_wide_scene``,
-``annotate_child_kinds`` and the row constants, producing tables byte-equal
-to the JAX package's (``tests/test_torch_scene.py``).  The leaf-DMA split
-tables (``split_for_dma``) belong to the big-scene path and are not ported.
+``annotate_child_kinds``, the split tables of the big-scene path
+(``split_for_dma``) and the row constants, producing tables byte-equal to the
+JAX package's (``tests/test_torch_scene.py``, ``tests/test_torch_split.py``).
 
 Each traversal step reads ONE row: an internal row tests 8 child AABBs, a
 leaf row up to 6 world-space triangles, a prim row an analytic primitive
@@ -15,7 +15,8 @@ Row encoding (float32[64] per row; integer lanes hold exact float values):
   lane 0           kind: 0=internal, 1=tri leaf, 2=analytic prim, 3=empty
   internal         lane 1: child_base (children at child_base+0..7)
                    lanes 2+6c..7+6c: child c AABB lo.xyz, hi.xyz (world, padded)
-                   lanes 50..57: child kinds (annotate_child_kinds)
+                   lanes 50..57: child kinds (annotate_child_kinds); in the
+                   split resident table, child links (split_for_dma)
   tri leaf         lane 1: count (<=6), lane 2: tri_base (global world-tri id),
                    lane 3: owning prim id (light-exclusion parity),
                    lanes 8+9k..16+9k: triangle k  a.xyz, e1.xyz, e2.xyz (world)
@@ -43,6 +44,9 @@ from . import bvh as bvh_mod
 WIDE = 8
 ROW_W = 64
 WIDE_LEAF = 6  # triangles per leaf row: lanes 8 + 9k must fit ROW_W
+# merged leaf rows of the split tables: lanes 8 + 9k, k < 12 -> 115 < 128
+DMA_LEAF_K = 12
+LEAF_ROW_W = 128
 
 KIND_INTERNAL = 0
 KIND_TRIS = 1
@@ -89,6 +93,118 @@ def annotate_child_kinds(rows: np.ndarray) -> np.ndarray:
         ch = rows[internal, 1].astype(np.int64)[:, None] + np.arange(WIDE)
         rows[internal, 50:50 + WIDE] = kind[ch].astype(np.float32)
     return rows
+
+
+def split_for_dma(rows: np.ndarray):
+    """Split the unified row table into a resident table and a leaf table.
+
+    Counterpart of the JAX package's ``wide_bvh.split_for_dma``, byte-equal
+    to it.  The RESIDENT table keeps the internal and analytic-prim rows and
+    drops the EMPTY rows (8-child allocation padding, never reached: their
+    point boxes fail every slab test).  The LEAF table holds the triangle
+    leaves as dense 128-float rows: sibling leaf children with contiguous
+    triangle ranges of one prim merge into one row of up to DMA_LEAF_K
+    triangles, so a walk reads about half as many leaf rows.  Hit results
+    are those of the unified walk: a merged child's box is the exact union
+    of its members' boxes and its triangles keep their leaf order.
+
+    Internal resident rows get per-child links in lanes 50+c (exact float
+    values): a resident child -> its resident index, a leaf child ->
+    ``-(leaf_index + 1)``, an EMPTY or merged-away child -> 0.  Lane 58
+    holds the 8 child kinds packed 2 bits each; merged-away slots read
+    KIND_EMPTY and carry a zero point box.  Lane 1 keeps the unified
+    child_base, which no split walk reads.
+
+    Returns ``(res_rows (Ri, 64), leaf_rows (L, 128))`` float32; needs an
+    internal or prim root."""
+    assert rows.shape[0] < (1 << 23)
+    kind = rows[:, 0].astype(np.int32)
+    is_leaf = kind == KIND_TRIS
+    is_empty = kind == KIND_EMPTY
+    keep = (~is_leaf) & (~is_empty)
+    res_ids = np.cumsum(keep) - 1
+    res_rows = rows[keep].copy()
+    assert not is_leaf[0], "the split needs an internal/prim root"
+    internal = np.nonzero(kind == KIND_INTERNAL)[0]
+    ch = rows[internal, 1].astype(np.int64)[:, None] + np.arange(WIDE)
+    ckind = kind[ch].copy()  # (I, 8), mutated by the merge below
+
+    # ---- sibling-leaf merge into dense 128-float rows ----
+    pi, ci = np.nonzero(ckind == KIND_TRIS)
+    lrow = ch[pi, ci]  # original leaf row id per (parent, child-slot) entry
+    base = rows[lrow, 2].astype(np.int64)
+    cnt = rows[lrow, 1].astype(np.int64)
+    prim = rows[lrow, 3].astype(np.int64)
+    order = np.lexsort((base, pi))
+    grp = np.empty(len(order), np.int64)
+    off = np.empty(len(order), np.int64)
+    gid = -1
+    gcount = 0
+    prev_p = prev_end = prev_prim = -1
+    for e in order:
+        p, b, n, pr = pi[e], base[e], cnt[e], prim[e]
+        if (p == prev_p and pr == prev_prim and b == prev_end
+                and gcount + n <= DMA_LEAF_K):
+            off[e] = gcount
+            grp[e] = gid
+            gcount += n
+        else:
+            gid += 1
+            grp[e] = gid
+            off[e] = 0
+            gcount = n
+        prev_p, prev_end, prev_prim = p, b + n, pr
+    n_groups = gid + 1
+    leaf_rows = np.zeros((max(n_groups, 1), LEAF_ROW_W), np.float32)
+    enc = np.where(is_empty[ch], 0, res_ids[ch])  # PRIM/INTERNAL links
+    ri = res_ids[internal]
+    first = off == 0
+    for e in order:
+        g = grp[e]
+        n = int(cnt[e])
+        src = rows[lrow[e]]
+        leaf_rows[g, 8 + 9 * off[e]:8 + 9 * (off[e] + n)] = src[8:8 + 9 * n]
+        leaf_rows[g, 1] += np.float32(n)
+        p, c = pi[e], ci[e]
+        if first[e]:
+            leaf_rows[g, 0] = _f(KIND_TRIS)
+            leaf_rows[g, 2] = src[2]  # tri_base (group-first: min base)
+            leaf_rows[g, 3] = src[3]  # owning prim id (uniform in a group)
+            enc[p, c] = -(g + 1)
+        else:
+            # merged-away slot: its box joins the group winner's (second
+            # pass) and becomes a zero point box no slab test passes
+            ckind[p, c] = KIND_EMPTY
+            enc[p, c] = 0
+    # second pass for AABB unions (winner slot per group = the first entry)
+    win_slot = {}
+    for e in order:
+        g = grp[e]
+        p, c = pi[e], ci[e]
+        lo_l = slice(2 + 6 * c, 5 + 6 * c)
+        hi_l = slice(5 + 6 * c, 8 + 6 * c)
+        if first[e]:
+            win_slot[g] = (ri[p], c)
+        else:
+            wr, wc = win_slot[g]
+            wlo = slice(2 + 6 * wc, 5 + 6 * wc)
+            whi = slice(5 + 6 * wc, 8 + 6 * wc)
+            res_rows[wr, wlo] = np.minimum(res_rows[wr, wlo],
+                                           res_rows[ri[p], lo_l])
+            res_rows[wr, whi] = np.maximum(res_rows[wr, whi],
+                                           res_rows[ri[p], hi_l])
+            # zero-volume point box: tn == tf never satisfies tn < tf (an
+            # inverted box would pass everywhere)
+            res_rows[ri[p], lo_l] = np.float32(0.0)
+            res_rows[ri[p], hi_l] = np.float32(0.0)
+
+    res_rows[ri, 50:50 + WIDE] = enc.astype(np.float32)
+    # lane 58: the 8 child kinds packed 2 bits each (exact as a float)
+    kindbits = np.zeros(len(internal), np.int64)
+    for c in range(WIDE):
+        kindbits |= ckind[:, c].astype(np.int64) << (2 * c)
+    res_rows[ri, 58] = kindbits.astype(np.float32)
+    return res_rows, leaf_rows
 
 
 def _transform_points(fwd: np.ndarray, p: np.ndarray) -> np.ndarray:

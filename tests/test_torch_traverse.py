@@ -203,6 +203,29 @@ def test_shadow_ray_matches_jax(scenes, kind, n):
     assert 0 < tb.numpy().mean() < 1
 
 
+@pytest.mark.parametrize("kind", ["coherent", "incoherent"])
+def test_v1_kernel_matches_plain_walk(scenes, kind, monkeypatch):
+    """K7, the JAX package's v1 lockstep kernel (``BUAS_PACKET_V1=1``, run
+    in interpret mode on 256 rays), computes ``wide_traverse``'s function:
+    the port's plain walk finds its hits under the XLA rule above."""
+    from buas_pathtracer_tpu.ops import pallas_packet as jpp
+    monkeypatch.setenv("BUAS_PACKET_V1", "1")
+    sc, jps, tps = scenes
+    o, d, t0 = _rays(sc, 256, kind, seed=4)
+    ign = np.full(t0.shape, -1, np.int32)
+    ref = jpp.packet_traverse(jps.wide_rows, _jv(o), _jv(d), jnp.asarray(t0),
+                              jnp.asarray(ign), occlusion=False,
+                              interpret=True)
+    out = packet.wide_traverse(tps.wide_rows, tps.wide_depth, _tv(o), _tv(d),
+                               torch.from_numpy(t0), torch.from_numpy(ign),
+                               False)
+    out = [x.numpy() for x in out[:5]]
+    ref = [np.asarray(x) for x in ref[:5]]
+    assert (ref[1] >= 0).mean() > 0.3
+    np.testing.assert_allclose(out[0], ref[0], rtol=1e-5, atol=1e-5)
+    assert_tri_match(out, ref, t_rtol=1e-5)
+
+
 def test_stack_bound_enforced(scenes):
     _, _, tps = scenes
     o, d, t0 = _rays(None, 16, "incoherent")
