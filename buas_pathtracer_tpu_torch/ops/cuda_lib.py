@@ -7,16 +7,21 @@ as ``c_void_p``; each launch function returns ``cudaGetLastError()`` and the
 wrappers raise when it is not 0.
 
 The library lands in ``csrc/_build/`` (listed in ``.gitignore``) under a
-name keyed by the sources and flags, so a checkout builds at first use and
-reuses the library afterwards.  Nothing here runs at import: the CPU tests
-import every module and have no ``nvcc``.
+name keyed by every ``csrc/*.cu`` and ``*.cuh`` and the flags, so a checkout
+builds at first use and reuses the library afterwards.  ``nvcc`` runs with
+``-Xptxas -v``; its report (registers, spill stores and loads, stack frame
+and shared memory of every kernel) is kept beside the library and read back
+by ``build_report``.  Nothing here runs at import: the CPU tests import
+every module and have no ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,7 +35,7 @@ SOURCES = ("wide_traverse.cu", "split_traverse.cu", "tristream.cu",
 # -fmad=false: no fused multiply-add, so the kernels round like the unfused
 # PyTorch ops of their plain versions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -48,14 +53,19 @@ def _nvcc() -> str:
 
 def _key() -> str:
     h = hashlib.sha256()
-    for s in SOURCES:
-        with open(os.path.join(_CSRC, s), "rb") as f:
+    for path in sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                       + glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
 def _build(so: str) -> None:
+    """Compile ``SOURCES`` (one nvcc each, all started together), link them
+    into ``so`` and write nvcc's report (the ``-Xptxas -v`` lines) to
+    ``so + ".ptxas.txt"``."""
     nvcc = _nvcc()
     os.makedirs(_BUILD, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=_BUILD)
@@ -67,11 +77,13 @@ def _build(so: str) -> None:
             procs.append((s, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC, s), "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        errors = []
+        errors, report = [], []
         for s, p in procs:
             out, _ = p.communicate()
+            text = out.decode(errors="replace")
             if p.returncode != 0:
-                errors.append(f"{s}:\n{out.decode(errors='replace')}")
+                errors.append(f"{s}:\n{text}")
+            report.append(f"== {s}\n{text}")
         if errors:
             raise RuntimeError("nvcc failed\n" + "\n".join(errors))
         tmp_so = os.path.join(tmp, "lib.so")
@@ -82,9 +94,61 @@ def _build(so: str) -> None:
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed\n"
                                + link.stdout.decode(errors="replace"))
+        with open(so + ".ptxas.txt", "w") as f:
+            f.write("\n".join(report))
         os.replace(tmp_so, so)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _kernel_name(mangled: str) -> str:
+    """The function name inside an Itanium-mangled name (``_Z21foo...``,
+    ``_ZN12_GLOBAL__N_13fooE...``); the mangled name when it is not one."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i = 3 if mangled.startswith("_ZN") else 2
+    names = []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        size = int(mangled[i:j])
+        names.append(mangled[j:j + size])
+        i = j + size
+        if not mangled.startswith("_ZN"):
+            break
+    names = [x for x in names if not x.startswith("_GLOBAL__N")]
+    return names[-1] if names else mangled
+
+
+def parse_ptxas(text: str) -> dict:
+    """Per kernel, from nvcc's ``-Xptxas -v`` report: registers, spill
+    stores and loads (bytes), stack frame (bytes) and static shared memory
+    (bytes)."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            cur = out.setdefault(_kernel_name(m.group(1)), {
+                "registers": 0, "spill_stores": 0, "spill_loads": 0,
+                "stack_frame": 0, "smem": 0})
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack_frame", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                cur[key] = int(m.group(1))
+    return out
+
+
+def _so_path() -> str:
+    return os.path.join(_BUILD, f"libbuas_torch_kernels_{_key()}.so")
 
 
 def load():
@@ -94,7 +158,7 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
-        so = os.path.join(_BUILD, f"libbuas_torch_kernels_{_key()}.so")
+        so = _so_path()
         if not os.path.exists(so):
             _build(so)
         lib = ctypes.CDLL(so)
@@ -102,15 +166,16 @@ def load():
         lib.wide_traverse_launch.restype = ci
         lib.wide_traverse_launch.argtypes = [
             vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-            vp, vp, vp, vp, vp, vp, vp]
-        lib.wide_traverse_max_stack.restype = ci
-        lib.wide_traverse_max_stack.argtypes = []
+            vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
         lib.split_traverse_launch.restype = ci
         lib.split_traverse_launch.argtypes = [
             vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-            vp, vp, vp, vp, vp, vp, vp]
-        lib.split_traverse_max_stack.restype = ci
-        lib.split_traverse_max_stack.argtypes = []
+            vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
+        for name in ("wide_traverse", "split_traverse"):
+            getattr(lib, f"{name}_max_stack").restype = ci
+            getattr(lib, f"{name}_max_stack").argtypes = []
+            getattr(lib, f"{name}_blocks").restype = ci
+            getattr(lib, f"{name}_blocks").argtypes = [ci]
         lib.tristream_closest_launch.restype = ci
         lib.tristream_closest_launch.argtypes = [
             vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
@@ -120,6 +185,15 @@ def load():
             vp]
         _lib = lib
         return _lib
+
+
+def build_report() -> dict:
+    """``parse_ptxas`` of the loaded library's build (``load`` first)."""
+    path = _so_path() + ".ptxas.txt"
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return parse_ptxas(f.read())
 
 
 def check(rc: int, what: str) -> None:

@@ -13,10 +13,15 @@ prefilter and routing ladder are TPU scheduling and are not ported
 
 Kernel and plain version walk each ray with its own stack, in the same
 order, with the same arithmetic (the kernels are built with ``-fmad=false``),
-so on one device they return the same hits; the rules are listed in the
-kernel sources.  Outputs: t (float32), prim, tri (int32), bary v, w
-(float32), and a (2,) int64 tensor of [rows read, triangle tests] summed
-over the rays.
+so on one device they return the same hits and the same stats; the rules are
+listed in ``csrc/walk.cuh``.  Outputs: t (float32), prim, tri (int32), bary
+v, w (float32), and a (2,) int64 tensor of [rows read, triangle tests]
+summed over the rays.
+
+Both kernels run persistent warps (``csrc/walk.cuh``): the wrapper launches
+``walk_grid`` blocks of ``WALK_THREADS`` and zeroes the ray counter the
+warps fetch from; a warp refills once half its lanes are idle and steps
+the node kind most of its lanes want.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from .wide_bvh import (DMA_LEAF_K, KIND_EMPTY, KIND_INTERNAL, KIND_PRIM,
                        KIND_TRIS, LEAF_ROW_W, ROW_W, WIDE, WIDE_LEAF)
 
 STACK = 128  # per-ray stack capacity of both traversal kernels
+WALK_THREADS = 128  # threads per block of both kernels (csrc/walk.cuh)
+LINK_LIMIT = 1 << 28  # rows per table: a link rides in 29 bits of a sort key
 BIG_T = 1e30  # in-kernel child-key sentinel (pallas_packet.BIG_T)
 PRIM_SPHERE = 2
 
@@ -52,6 +59,14 @@ def stack_fits(depth: int) -> bool:
     return depth * (WIDE - 1) + 1 <= STACK
 
 
+def walk_grid(n: int, resident_blocks: int) -> int:
+    """Blocks of a persistent walk over ``n`` rays: the blocks resident on
+    the card, or fewer when ``n`` rays fill fewer blocks of WALK_THREADS."""
+    if resident_blocks < 1:
+        raise RuntimeError("the card's occupancy query returned no blocks")
+    return max(1, min(resident_blocks, -(-n // WALK_THREADS)))
+
+
 def _check(tables, o: Vec3, d: Vec3, t0, ign, depth: int):
     """tables: [(name, tensor, row width)], all on one device."""
     dev = tables[0][1].device
@@ -60,6 +75,9 @@ def _check(tables, o: Vec3, d: Vec3, t0, ign, depth: int):
                 or tab.shape[1] != width:
             raise ValueError(f"{name} must be float32 (R, {width}), got "
                              f"{tab.dtype} {tuple(tab.shape)}")
+        if tab.shape[0] >= LINK_LIMIT:
+            raise ValueError(f"{name} has {tab.shape[0]} rows, the walk "
+                             f"links at most {LINK_LIMIT}")
     if not stack_fits(depth):
         raise ValueError(f"tree depth {depth} needs a stack of "
                          f"{depth * (WIDE - 1) + 1} > {STACK}")
@@ -79,9 +97,11 @@ def _check(tables, o: Vec3, d: Vec3, t0, ign, depth: int):
                                  f"{x.dtype} {tuple(x.shape)}")
 
 
-def _launch(name, key, tables, o: Vec3, d: Vec3, t0, ign, occlusion):
-    """Allocate the outputs and launch ``csrc/<name>.cu`` on the current
-    stream; ``key`` names the launch counter."""
+def _launch(name, key, tables, o: Vec3, d: Vec3, t0, ign, occlusion,
+            steps=None):
+    """Allocate the outputs and the ray counter and launch ``csrc/<name>.cu``
+    on the current stream; ``key`` names the launch counter.  ``steps``, an
+    int64 (1,) tensor, if given, gets the warp steps that read a row added."""
     lib = cuda_lib.load()
     if getattr(lib, f"{name}_max_stack")() != STACK:
         raise RuntimeError(f"csrc/{name}.cu STACK differs from ops/packet.py")
@@ -93,7 +113,14 @@ def _launch(name, key, tables, o: Vec3, d: Vec3, t0, ign, occlusion):
     bv = torch.empty(n, dtype=torch.float32, device=dev)
     bw = torch.empty(n, dtype=torch.float32, device=dev)
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+    if steps is not None and (steps.device != dev or steps.dtype != torch.int64
+                              or steps.numel() != 1):
+        raise ValueError("steps must be an int64 (1,) tensor on the rays' "
+                         "device")
     with torch.cuda.device(dev):
+        blocks = walk_grid(n, getattr(lib, f"{name}_blocks")(
+            int(bool(occlusion))))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
             *(x.data_ptr() for x in tables), n, o.x.data_ptr(),
@@ -101,29 +128,31 @@ def _launch(name, key, tables, o: Vec3, d: Vec3, t0, ign, occlusion):
             d.z.data_ptr(), t0.data_ptr(), ign.data_ptr(),
             int(bool(occlusion)), t.data_ptr(), prim.data_ptr(),
             tri.data_ptr(), bv.data_ptr(), bw.data_ptr(), stats.data_ptr(),
-            stream)
+            nxt.data_ptr(), None if steps is None else steps.data_ptr(),
+            blocks, stream)
     cuda_lib.check(rc, name)
     LAUNCHES[key] += 1
     return t, prim, tri, bv, bw, stats
 
 
 def wide_traverse(rows, depth: int, o: Vec3, d: Vec3, t0, ign,
-                  occlusion: bool):
+                  occlusion: bool, steps=None):
     """Closest-hit (or, with ``occlusion``, first-hit) walk of the row table.
 
     rows (R, 64) float32; o, d Vec3 of (N,) float32; t0 (N,) float32 (lanes
-    with t0 < 0 pass through); ign (N,) int32 prim to ignore (-1: none)."""
+    with t0 < 0 pass through); ign (N,) int32 prim to ignore (-1: none).
+    ``steps`` (kernel only): see ``_launch``."""
     _check([("rows", rows, ROW_W)], o, d, t0, ign, depth)
     if rows.device.type == "cpu":
         return wide_traverse_plain(rows, depth, o, d, t0, ign, occlusion)
     if rows.device.type != "cuda":
         raise ValueError(f"no wide_traverse for device {rows.device}")
     return _launch("wide_traverse", "occlusion" if occlusion else "closest",
-                   [rows], o, d, t0, ign, occlusion)
+                   [rows], o, d, t0, ign, occlusion, steps)
 
 
 def split_traverse(res, leaf, depth: int, o: Vec3, d: Vec3, t0, ign,
-                   occlusion: bool):
+                   occlusion: bool, steps=None):
     """``wide_traverse`` over the split tables (ops/wide_bvh.split_for_dma):
     res (Ri, 64) float32 resident rows, leaf (L, 128) float32 leaf rows;
     the rays and outputs as in ``wide_traverse``."""
@@ -136,7 +165,7 @@ def split_traverse(res, leaf, depth: int, o: Vec3, d: Vec3, t0, ign,
         raise ValueError(f"no split_traverse for device {res.device}")
     return _launch("split_traverse",
                    "split_occlusion" if occlusion else "split_closest",
-                   [res, leaf], o, d, t0, ign, occlusion)
+                   [res, leaf], o, d, t0, ign, occlusion, steps)
 
 
 class _Walk:
@@ -158,7 +187,11 @@ class _Walk:
         self.bw = torch.zeros(n, dtype=torch.float32, device=dev)
         self.stk_node = torch.zeros((n, cap), dtype=torch.int64, device=dev)
         self.stk_key = torch.zeros((n, cap), dtype=torch.float32, device=dev)
-        self.sp = (t0 >= 0.0).to(torch.int64)  # live rays start at the root
+        # live rays start at the root; rays with t0 < 0 or a NaN component
+        # (which would hit nothing) read no row
+        nan = (torch.isnan(o.x) | torch.isnan(o.y) | torch.isnan(o.z)
+               | torch.isnan(d.x) | torch.isnan(d.y) | torch.isnan(d.z))
+        self.sp = ((t0 >= 0.0) & ~nan).to(torch.int64)
         self.visits = torch.zeros((), dtype=torch.int64, device=dev)
         self.tests = torch.zeros((), dtype=torch.int64, device=dev)
 

@@ -11,7 +11,11 @@ Pathtracer) through the kernels, times each kernel at the shapes that frame
 gives it, then does the same for the big-scene path: the stress frame
 (``BENCH_SCENE=stress``: 655,360 triangles, 1920x1080, 1 spp, 6 bounces)
 through the split-table walk, and the dense triangle-stream entry point on
-the bench scene.  It prints one JSON line of kernel records.  The last line of
+the bench scene.  Each traversal kernel is held to its plain version with
+equal outputs and equal stats (rows read, triangle tests) on every wave; each
+wave's record carries its time, bound, plain time, lane utilisation and the
+kernel's registers and spills from nvcc's report.  It prints one JSON line of
+kernel records.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; any failed phase
 raises and the script exits non-zero without that line.  Without a CUDA
 card, or without the port's package beside it, it exits non-zero at once.
@@ -73,35 +77,81 @@ def cuda_ms(fn, reps):
 # ---------------------------------------------------------------------------
 
 def compare_hits(out, ref, what):
-    """Kernel vs plain outputs (t, prim, tri, bv, bw, stats).  prim and t
-    must be equal; tri may differ only where t is equal (a shared-edge tie,
-    at most max(2, N/1000) rays); barycentrics must match on mesh hits.
-    Returns (tri mismatches, max |t| difference)."""
+    """Kernel vs plain outputs (t, prim, tri, bv, bw, stats): every output
+    and both stats (rows read, triangle tests) equal.  The kernel pops each
+    ray's rows in the plain walk's order, so not even a shared-edge tie may
+    differ.  Returns the max |t| difference of finite t (0)."""
     t_o, t_r = out[0].cpu().numpy(), ref[0].cpu().numpy()
     p_o, p_r = out[1].cpu().numpy(), ref[1].cpu().numpy()
     tri_o, tri_r = out[2].cpu().numpy(), ref[2].cpu().numpy()
     n = t_o.size
     bad_prim = int((p_o != p_r).sum())
-    bad_t = int((t_o != t_r).sum())
+    bad_t = int((t_o.view(np.uint32) != t_r.view(np.uint32)).sum())
     fin = np.isfinite(t_o) & np.isfinite(t_r)
     err = float(np.abs(t_o[fin] - t_r[fin]).max()) if fin.any() else 0.0
-    diff = tri_o != tri_r
-    n_tri = int(diff.sum())
-    mesh = tri_r >= 0
-    bv_err = float(np.abs(out[3].cpu().numpy() - ref[3].cpu().numpy())[mesh]
-                   .max()) if mesh.any() else 0.0
-    bw_err = float(np.abs(out[4].cpu().numpy() - ref[4].cpu().numpy())[mesh]
-                   .max()) if mesh.any() else 0.0
+    n_tri = int((tri_o != tri_r).sum())
+    bary = [int((a.cpu().numpy().view(np.uint32)
+                 != b.cpu().numpy().view(np.uint32)).sum())
+            for a, b in zip(out[3:5], ref[3:5])]
+    st_o, st_r = out[5].cpu().tolist(), ref[5].cpu().tolist()
     log(f"  {what}: rays {n}, hits {int((p_r >= 0).sum())}, prim mismatches "
-        f"{bad_prim}, t mismatches {bad_t}, tri mismatches {n_tri}, "
-        f"max |dt| {err:.3g}, max |dbv| {bv_err:.3g}, max |dbw| {bw_err:.3g}")
-    if bad_prim or bad_t:
-        raise AssertionError(f"{what}: prim/t differ from the plain version")
-    if n_tri > max(2, n // 1000) or (diff & ~(t_o == t_r)).any():
-        raise AssertionError(f"{what}: {n_tri} triangle mismatches")
-    if bv_err > 1e-5 or bw_err > 1e-5:
-        raise AssertionError(f"{what}: barycentrics differ")
-    return n_tri, err
+        f"{bad_prim}, t mismatches {bad_t}, tri ties {n_tri}, bv/bw "
+        f"mismatches {bary}, stats {st_o} vs plain {st_r}")
+    if bad_prim or bad_t or n_tri or any(bary) or st_o != st_r:
+        raise AssertionError(f"{what}: the kernel differs from the plain "
+                             "version")
+    return err
+
+
+def record_waves(packet, walk, frame):
+    """Run ``frame()`` once with ``packet.<walk>`` wrapped, keeping copies
+    of the inputs of its first closest-hit call (the primary wave), its
+    second (bounce-1) and its first occlusion call (shadow-0).  Returns
+    {wave: (o, d, t0, ign, occlusion)}."""
+    import torch
+    real = getattr(packet, walk)
+    waves, calls = {}, {"closest": 0, "occlusion": 0}
+
+    def recorder(*args):
+        o, d, t0_, ign, occlusion = args[-5:]
+        mode = "occlusion" if occlusion else "closest"
+        key = {("closest", 0): "primary", ("closest", 1): "bounce",
+               ("occlusion", 0): "shadow"}.get((mode, calls[mode]))
+        calls[mode] += 1
+        if key is not None:
+            waves[key] = (type(o)(*(c.clone() for c in o)),
+                          type(d)(*(c.clone() for c in d)), t0_.clone(),
+                          ign.clone(), occlusion)
+        return real(*args)
+
+    setattr(packet, walk, recorder)
+    try:
+        frame()
+        torch.cuda.synchronize()
+    finally:
+        setattr(packet, walk, real)
+    return waves
+
+
+def ptxas_fields(report, kernel):
+    """The build report's numbers for one kernel, as record fields."""
+    r = report.get(kernel)
+    if r is None:
+        raise AssertionError(f"nvcc's report has no kernel {kernel}")
+    return {"registers": r["registers"], "spill_stores": r["spill_stores"],
+            "spill_loads": r["spill_loads"], "stack_frame": r["stack_frame"],
+            "smem": r["smem"]}
+
+
+def lane_util(walk_fn, args):
+    """One more launch with the warp-step counter: rows read / (32 x warp
+    steps that read a row), and the steps."""
+    import torch
+    steps = torch.zeros(1, dtype=torch.int64, device=args[-3].device)
+    out = walk_fn(*args, steps=steps)
+    rows = int(out[5][0])
+    n_steps = int(steps[0])
+    return (rows / (32 * n_steps) if n_steps else 0.0), n_steps
 
 
 def parity_rays(ps, cam, w, h, dev):
@@ -328,7 +378,7 @@ def read_launches():
     return {**packet.LAUNCHES, **post_kernel.LAUNCHES, **tristream.LAUNCHES}
 
 
-def run_stress(dev, card):
+def run_stress(dev, card, report):
     """Phases 10-14: the stress frame through split_traverse.  Returns the
     kernel records and the frame numbers."""
     import torch
@@ -361,7 +411,6 @@ def run_stress(dev, card):
 
     # ---- 11. split parity: kernel vs plain, and vs the unified walk ----
     max_err = {"closest": 0.0, "occlusion": 0.0}
-    n_tri = 0
     for name, (o, d, t0_, ign) in parity_rays(ps, scene.camera, W, H,
                                               dev).items():
         for occ in (False, True):
@@ -369,9 +418,8 @@ def run_stress(dev, card):
             out = packet.split_traverse(*walk, o, d, t0_, ign, occ)
             ref = packet.split_traverse_plain(*walk, o, d, t0_, ign, occ)
             torch.cuda.synchronize()
-            ties, err = compare_hits(out, ref, f"[11] {name}/{mode} "
-                                     "split_traverse vs plain")
-            n_tri += ties
+            err = compare_hits(out, ref, f"[11] {name}/{mode} "
+                               "split_traverse vs plain")
             max_err[mode] = max(max_err[mode], err)
             uni = packet.wide_traverse(ps.wide_rows, ps.wide_depth, o, d, t0_,
                                        ign, occ)
@@ -405,27 +453,14 @@ def run_stress(dev, card):
 
     # ---- 13. stress frame ----
     accum = film.new_accumulation_buffer(H, W, dev)
-    waves = {}
-    calls = {"closest": 0, "occlusion": 0}
+    calls = {"closest": 0}
 
-    def recorder(res, leaf, depth, o, d, t0_, ign, occlusion):
-        mode = "occlusion" if occlusion else "closest"
-        key = {("closest", 0): "primary", ("closest", 1): "bounce",
-               ("occlusion", 0): "shadow"}.get((mode, calls[mode]))
-        calls[mode] += 1
-        if key is not None:
-            waves[key] = (type(o)(*(c.clone() for c in o)),
-                          type(d)(*(c.clone() for c in d)), t0_.clone(),
-                          ign.clone(), occlusion)
-        return real_st(res, leaf, depth, o, d, t0_, ign, occlusion)
-
-    packet.split_traverse = recorder
-    try:  # warm-up frame, recording the path's wave inputs
+    def warm():  # warm-up frame, recording the path's wave inputs
+        nonlocal accum
         accum, _ = render_frame(ps, settings, scene.camera, accum, 0, h=H,
                                 w=W, n_lights=scene.n_lights, device=dev)
-        torch.cuda.synchronize()
-    finally:
-        packet.split_traverse = real_st
+
+    waves = record_waves(packet, "split_traverse", warm)
 
     wave_calls = {"primary": 0, "bounce": 0, "shadow": 0}
 
@@ -521,8 +556,9 @@ def run_stress(dev, card):
                             device=dev)
         ref = packet.split_traverse_plain(*walk, o, d, t0_, ign, occ,
                                           leaf_reads=reads)
-        ties, err = compare_hits(out, ref, f"[14] {wave} wave/{mode}")
+        err = compare_hits(out, ref, f"[14] {wave} wave/{mode}")
         visits, tests = (int(x) for x in out[5].cpu())
+        util, steps = lane_util(real_st, (*walk, o, d, t0_, ign, occ))
         leaf_rows = int((reads > 0).sum())
         leaf_pops = int(reads.sum())
         ms = cuda_ms(lambda: real_st(*walk, o, d, t0_, ign, occ), KERNEL_REPS)
@@ -545,7 +581,8 @@ def run_stress(dev, card):
         log(f"[14] split_traverse<{mode}> {wave} wave: {n} rays ({live} "
             f"live), rows read {visits} ({leaf_pops} leaf, {leaf_rows} "
             f"distinct leaf rows of {ps.v4_leaf.shape[0]}), tri tests {tests}"
-            f": kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f", lane utilisation {util:.4f} ({steps} warp steps): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
             f"{max(t_b, t_o):.4f} ms (bytes {t_b:.4f}, operations "
             f"{t_o:.4f}); wide_traverse on the unified table "
             f"{uni_kernel_ms:.4f} ms (rows read {int(uni[5][0])}, tri tests "
@@ -557,11 +594,14 @@ def run_stress(dev, card):
             replaces=f"buas_pathtracer_tpu/ops/pallas_packet.py:{line}",
             launches=launches[f"split_{mode}"],
             wave_launches=wave_calls[wave],
-            parity=f"equal to plain (tri ties {ties + n_tri})",
+            parity="equal to plain (outputs and stats)",
             max_abs_err=max(err, max_err[mode]), ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_b, t_o),
             bound_by="bytes" if t_b >= t_o else "operations",
-            library_ms=None, unified_wide_traverse_ms=uni_kernel_ms))
+            library_ms=None, lane_util=util, warp_steps=steps,
+            rows_read=visits, tri_tests=tests,
+            **ptxas_fields(report, f"split_traverse_{mode}"),
+            unified_wide_traverse_ms=uni_kernel_ms))
     info = {"stress_frame_ms": frame_ms, "stress_frame_ms_b": split_ms_b,
             "stress_unified_frame_ms": uni_ms,
             "stress_unified_frame_ms_b": uni_ms_b,
@@ -570,7 +610,7 @@ def run_stress(dev, card):
     return records, info
 
 
-def run_tristream(ps, o, d, card):
+def run_tristream(ps, o, d, card, report):
     """Phase 15: the dense triangle-stream entry point on the bench scene's
     world triangles and its primary rays; returns the kernel record."""
     import torch
@@ -617,7 +657,8 @@ def run_tristream(ps, o, d, card):
         launches=launches, path="entry point ops/tristream.intersect_tristream"
         " (not on a frame)", parity="equal to plain (t, id, u, v)",
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o),
-        bound_by="bytes" if t_b >= t_o else "operations", library_ms=None)
+        bound_by="bytes" if t_b >= t_o else "operations", library_ms=None,
+        **ptxas_fields(report, "tristream_kernel"))
 
 
 # ---------------------------------------------------------------------------
@@ -659,8 +700,17 @@ def main():
     # ---- 2. build ----
     t0 = time.perf_counter()
     cuda_lib.load()
-    log(f"[2] CUDA kernels built (four nvcc in parallel + link) and loaded "
-        f"in {time.perf_counter() - t0:.2f} s")
+    log(f"[2] CUDA kernels built ({len(cuda_lib.SOURCES)} nvcc in parallel "
+        f"+ link) and loaded in {time.perf_counter() - t0:.2f} s")
+    report = cuda_lib.build_report()
+    for kname, r in sorted(report.items()):
+        log(f"[2] nvcc -Xptxas -v {kname}: registers {r['registers']}, spill "
+            f"stores {r['spill_stores']} B, spill loads {r['spill_loads']} B,"
+            f" stack frame {r['stack_frame']} B, shared memory {r['smem']} B")
+    for kname in ("wide_traverse_closest", "wide_traverse_occlusion",
+                  "split_traverse_closest", "split_traverse_occlusion",
+                  "tristream_kernel", "post_rgba8_kernel"):
+        ptxas_fields(report, kname)  # fails when the report lacks one
     t0 = time.perf_counter()
     if not native.available():
         raise RuntimeError("native builders unavailable (g++)")
@@ -684,7 +734,7 @@ def main():
             ref = packet.wide_traverse_plain(ps.wide_rows, ps.wide_depth, o,
                                              d, t0_, ign, occ)
             torch.cuda.synchronize()
-            _, err = compare_hits(out, ref, f"[3] {name}/{mode}")
+            err = compare_hits(out, ref, f"[3] {name}/{mode}")
             max_err[mode] = max(max_err[mode], err)
 
     # ---- 4. post parity ----
@@ -722,10 +772,10 @@ def main():
         img_p, _, _ = render(small, 64, 64, frames=1, device=dev)
     finally:
         packet.wide_traverse = real_wt
-    d_img = np.abs(img_k - img_p)
-    log(f"[5] 64x64 bench scene, 4 bounces: kernels vs plain mean |diff| "
-        f"{d_img.mean():.3g}, max {d_img.max():.3g}")
-    if not np.isfinite(img_k).all() or d_img.mean() > 1e-6:
+    same = bool(np.array_equal(img_k, img_p))
+    log(f"[5] 64x64 bench scene, 4 bounces: kernels vs plain identical "
+        f"{same}, max |diff| {float(np.abs(img_k - img_p).max()):.3g}")
+    if not np.isfinite(img_k).all() or not same:
         raise AssertionError("small frame: kernels and plain versions differ")
     for gname in ("spheres_advanced", "mesh_advanced"):
         ref = np.load(os.path.join(HERE, "tests", "goldens",
@@ -742,27 +792,14 @@ def main():
     # ---- 6. bench frame ----
     settings = scene.settings
     accum = film.new_accumulation_buffer(H, W, dev)
-    waves = {}
-    calls = {"closest": 0, "occlusion": 0}
+    calls = {"closest": 0}
 
-    def recorder(rows, depth, o, d, t0_, ign, occlusion):
-        mode = "occlusion" if occlusion else "closest"
-        key = {("closest", 0): "primary", ("closest", 1): "bounce",
-               ("occlusion", 0): "shadow"}.get((mode, calls[mode]))
-        calls[mode] += 1
-        if key is not None:
-            waves[key] = (type(o)(*(c.clone() for c in o)),
-                          type(d)(*(c.clone() for c in d)), t0_.clone(),
-                          ign.clone(), occlusion)
-        return real_wt(rows, depth, o, d, t0_, ign, occlusion)
-
-    packet.wide_traverse = recorder
-    try:  # warm-up frame, recording the main path's wave inputs
+    def warm():  # warm-up frame, recording the main path's wave inputs
+        nonlocal accum
         accum, _ = render_frame(ps, settings, scene.camera, accum, 0, h=H,
                                 w=W, n_lights=scene.n_lights, device=dev)
-        torch.cuda.synchronize()
-    finally:
-        packet.wide_traverse = real_wt
+
+    waves = record_waves(packet, "wide_traverse", warm)
 
     # the timed frames count each wave kind's calls (the first closest-hit
     # call of a frame is its primary wave); the kernels' own launch counters
@@ -832,8 +869,10 @@ def main():
         out = real_wt(ps.wide_rows, ps.wide_depth, o, d, t0_, ign, occ)
         ref = packet.wide_traverse_plain(ps.wide_rows, ps.wide_depth, o, d,
                                          t0_, ign, occ)
-        _, err = compare_hits(out, ref, f"[7] {wave} wave/{mode}")
+        err = compare_hits(out, ref, f"[7] {wave} wave/{mode}")
         visits, tests = (int(x) for x in out[5].cpu())
+        util, steps = lane_util(real_wt, (ps.wide_rows, ps.wide_depth, o, d,
+                                          t0_, ign, occ))
         ms = cuda_ms(lambda: real_wt(ps.wide_rows, ps.wide_depth, o, d, t0_,
                                      ign, occ), KERNEL_REPS)
         plain_ms = cuda_ms(lambda: packet.wide_traverse_plain(
@@ -846,7 +885,8 @@ def main():
         ops = visits * 8 * 12 + tests * 45
         t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
         log(f"[7] wide_traverse<{mode}> {wave} wave: {n} rays ({live} live), "
-            f"visits {visits}, tri tests {tests}: kernel {ms:.4f} ms, plain "
+            f"visits {visits}, tri tests {tests}, lane utilisation "
+            f"{util:.4f} ({steps} warp steps): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.2f} ms, bound {max(t_b, t_o):.4f} ms (bytes "
             f"{t_b:.4f}, operations {t_o:.4f}), {wave_calls[wave]} calls "
             f"in the timed frames ({card})")
@@ -857,11 +897,14 @@ def main():
             k=k, name=f"wide_traverse<{mode}> {wave} wave", route="cuda",
             source="buas_pathtracer_tpu_torch/csrc/wide_traverse.cu",
             replaces=replaces, launches=launches[mode],
-            wave_launches=wave_calls[wave], parity="equal to plain",
+            wave_launches=wave_calls[wave],
+            parity="equal to plain (outputs and stats)",
             max_abs_err=max(err, max_err[mode]), ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_b, t_o),
             bound_by="bytes" if t_b >= t_o else "operations",
-            library_ms=None))
+            library_ms=None, lane_util=util, warp_steps=steps,
+            rows_read=visits, tri_tests=tests,
+            **ptxas_fields(report, f"wide_traverse_{mode}")))
     # K7 (the v1 kernel) computes K1's function: the same instantiation on
     # the same primary wave serves it
     records.append(dict(
@@ -892,7 +935,8 @@ def main():
         launches=launches["post_rgba8"], parity="within 1 LSB of plain",
         max_abs_err=max(post_err, frame_err),
         ms=ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o),
-        bound_by="bytes" if t_b >= t_o else "operations", library_ms=None))
+        bound_by="bytes" if t_b >= t_o else "operations", library_ms=None,
+        **ptxas_fields(report, "post_rgba8_kernel")))
 
     # ---- 8. where the bench frame's time goes ----
     frame_breakdown(lambda: render_frame(
@@ -901,12 +945,12 @@ def main():
         frame_s * 1e3, "[8]")
 
     # ---- 10-14. the stress frame through the split tables ----
-    stress_records, stress = run_stress(dev, card)
+    stress_records, stress = run_stress(dev, card, report)
     records += stress_records
 
     # ---- 15. the dense triangle stream on the bench scene ----
     o, d, _, _ = sets["primary"]
-    records.append(run_tristream(ps, o, d, card))
+    records.append(run_tristream(ps, o, d, card, report))
 
     # ---- 16. records ----
     records.sort(key=lambda r: r["k"])

@@ -39,6 +39,7 @@ from buas_pathtracer_tpu_torch.utils.procgen import icosphere as tico
 from test_torch_render import GOLDEN_DIR, assert_image_close
 from test_torch_scene import scene_mesh
 from test_torch_traverse import assert_tri_match
+from test_torch_walk import CARD_EDGES, check_edge_on_card
 
 J = (JScene, jvec, jcm, jico)
 T = (TScene, tvec, tcm, tico)
@@ -319,3 +320,13 @@ def test_split_kernel_matches_plain_on_card(packed, card, kind, n,
     assert packet.LAUNCHES[key] == before + 1
     for a, b in zip(out, ref):
         assert torch.equal(a.cpu(), b.cpu().to(a.dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("occlusion", [False, True],
+                         ids=["closest", "occlusion"])
+@pytest.mark.parametrize("edge", CARD_EDGES)
+def test_split_kernel_fetch_edges_on_card(card, edge, occlusion):
+    """The persistent fetch loop's edges (tests/test_torch_walk.py):
+    kernel and plain version equal, stats included."""
+    check_edge_on_card(edge, True, occlusion, card)

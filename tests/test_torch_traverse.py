@@ -25,6 +25,7 @@ from buas_pathtracer_tpu_torch.core.vec import Vec3 as TV
 from buas_pathtracer_tpu_torch.models.scene import from_jax_arrays
 from buas_pathtracer_tpu_torch.ops import packet
 from buas_pathtracer_tpu_torch.ops import traverse_wide as ttw
+from test_torch_walk import CARD_EDGES, check_edge_on_card
 
 
 def assert_tri_match(out, ref, t_rtol=0.0):
@@ -274,3 +275,13 @@ def test_kernel_matches_plain_on_card(scenes, card, kind, n, occlusion):
     assert packet.LAUNCHES["occlusion" if occlusion else "closest"] == before + 1
     for a, b in zip(out[:5], ref[:5]):
         assert torch.equal(a.cpu(), b.cpu().to(a.dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("occlusion", [False, True],
+                         ids=["closest", "occlusion"])
+@pytest.mark.parametrize("edge", CARD_EDGES)
+def test_kernel_fetch_edges_on_card(card, edge, occlusion):
+    """The persistent fetch loop's edges (tests/test_torch_walk.py):
+    kernel and plain version equal, stats included."""
+    check_edge_on_card(edge, False, occlusion, card)
