@@ -1,4 +1,4 @@
-// post_rgba8: accumulation buffer -> uint8 RGBA, one thread per pixel.
+// post_rgba8: accumulation buffer -> uint8 RGBA, PIX pixels per thread.
 //
 // Replaces the TPU kernel buas_pathtracer_tpu/ops/pallas_post.py
 // _post_kernel (:32): one fused pass of divide by weight -> exposure ->
@@ -6,24 +6,40 @@
 // TPDF dither -> NaN shown cyan, negative weight shown magenta -> clip.
 // The arithmetic follows the plain version (ops/post_kernel.py
 // post_rgba8_plain, itself runtime/post.py _post_process_jnp of the JAX
-// package) step for step, with expf / powf / rsqrtf.
+// package) step for step, with IEEE division, expf, powf and rsqrtf.
 //
-// Layout: reads the (H, W, 4) float32 accumulation as one float4 per pixel
-// and the 64x64x3 dither tile by (y % 64, x % 64); writes uint8 RGBA
-// directly.  The Pallas kernel's channel planes, frame-size dither planes
-// and int32 output were Mosaic limits and do not come over.
+// Layout: reads the (H, W, 4) float32 accumulation as float4 pixels and the
+// 64x64x3 dither tile by (y % 64, x % 64); writes uint8 RGBA directly.  The
+// Pallas kernel's channel planes, frame-size dither planes and int32 output
+// were Mosaic limits and do not come over.
 //
-// What bounds it on an H100: memory.  20 bytes per pixel (16 read, 4
-// written; the 48 KB tile stays in L1/L2), 41.5 MB per 1080p frame, about
-// 12 us at 3.35 TB/s.  What is left to gain is fusing it into the splat or
-// resolve pass, which would drop the 16-byte re-read.
+// What bounds it on an H100: instruction issue.  The 41.5 MB a 1080p frame
+// moves (16 bytes read and 4 written per pixel) take 12 us at 3.35 TB/s,
+// but each channel runs an IEEE division, expf and a full-precision powf,
+// a few hundred SASS instructions per pixel.  So the design cuts the
+// instructions around that math and keeps the memory system busy:
+//  - a thread takes PIX consecutive pixels of the flat index, so every
+//    group starts on a multiple of PIX and its PIX float4 loads and its one
+//    16-byte store stay aligned whatever the width; the PIX loads are
+//    issued before any arithmetic;
+//  - one integer division per group for (y, x), then an increment that
+//    wraps at the row's end;
+//  - each setting's branch is taken once per group, over all 3 x PIX
+//    channel values, not once per channel;
+//  - the last group, which may run past H x W, loads and stores pixel by
+//    pixel.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+// 64-thread blocks: 2-7% less device time than 128 and 256 on a 1080p
+// frame (H100 80GB HBM3, 700 W; PERF.md, the post kernel's steps)
+constexpr int THREADS = 64;
+constexpr int PIX = 4;  // pixels per thread, a multiple of 4
+static_assert(PIX % 4 == 0, "a group stores whole 16-byte words");
 constexpr int TILE = 64;
 
 struct PostParams {
@@ -35,65 +51,127 @@ struct PostParams {
   float one_minus_mid;
   int exposure_on, tonemapping, srgb, contrast_on, dither;
 };
+// chip_smoke.py finds the flags in the kernel's SASS at these offsets after
+// the kernel's first five parameters (its POST_FLAG_OFFSETS)
+static_assert(sizeof(PostParams) == 44 &&
+                  offsetof(PostParams, exposure_on) == 24 &&
+                  offsetof(PostParams, dither) == 40,
+              "PostParams: six floats, then the five int flags");
 
-__device__ __forceinline__ float channel(float c, float safe_w, float d,
-                                         const PostParams &p) {
-  c = fmaxf(c / safe_w, 0.0f);
-  if (p.exposure_on) c = c * p.exposure_scale;
-  if (p.tonemapping) c = 1.0f - expf(-c);
-  if (p.srgb) c = powf(fmaxf(c, 0.0f), (float)(1.0 / 2.23333));
-  if (p.contrast_on) {
-    const float scale_lo = c / p.mid_div;
-    const float lo = p.midpoint * scale_lo * scale_lo;
-    const float scale_hi = p.y_hi - p.y_hi * c;
-    const float hi = 1.0f - p.one_minus_mid * scale_hi * scale_hi;
-    const float curve = c < p.midpoint ? lo : hi;
-    c = c + (curve - c) * p.contrast;
-  }
-  c = c * 255.0f;
-  if (p.dither) {
-    const float orig = 2.0f * d - 1.0f;
-    float v = orig * rsqrtf(fmaxf(fabsf(orig), 1e-30f));
-    v = fmaxf(-1.0f, v);
-    const float sgn = v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
-    c = c + 0.5f + (v - sgn);
-  }
-  return c;
+__device__ __forceinline__ float contrast_curve(float c, const PostParams &p) {
+  const float scale_lo = c / p.mid_div;
+  const float lo = p.midpoint * scale_lo * scale_lo;
+  const float scale_hi = p.y_hi - p.y_hi * c;
+  const float hi = 1.0f - p.one_minus_mid * scale_hi * scale_hi;
+  const float curve = c < p.midpoint ? lo : hi;
+  return c + (curve - c) * p.contrast;
 }
 
-__device__ __forceinline__ unsigned char to_u8(float c) {
-  return (unsigned char)fminf(fmaxf(c, 0.0f), 255.0f);
+// uniform [0, 1) -> triangular PDF on [-1, 1]
+__device__ __forceinline__ float remap_tpdf(float d) {
+  const float orig = 2.0f * d - 1.0f;
+  float v = orig * rsqrtf(fmaxf(fabsf(orig), 1e-30f));
+  v = fmaxf(-1.0f, v);
+  const float sgn = v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
+  return v - sgn;
+}
+
+__device__ __forceinline__ unsigned to_u8(float c) {
+  return (unsigned)(unsigned char)fminf(fmaxf(c, 0.0f), 255.0f);
 }
 
 __global__ void __launch_bounds__(THREADS)
 post_rgba8_kernel(const float4 *__restrict__ accum,
                   const float *__restrict__ tile, uchar4 *__restrict__ out,
-                  int h, int w, PostParams p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= h * w) return;
-  const int y = i / w, x = i - y * w;
-  const float4 a = accum[i];
-  const float wgt = a.w;
-  const bool has_weight = wgt > 0.001f;
-  const bool neg_weight = wgt < -0.01f;
-  const bool is_nan = isnan(a.x) || isnan(a.y) || isnan(a.z) || isnan(wgt);
-  const float safe_w = has_weight ? wgt : 1.0f;
-  const float *d = tile + ((y % TILE) * TILE + (x % TILE)) * 3;
-  float r = channel(a.x, safe_w, p.dither ? __ldg(d + 0) : 0.0f, p);
-  float g = channel(a.y, safe_w, p.dither ? __ldg(d + 1) : 0.0f, p);
-  float b = channel(a.z, safe_w, p.dither ? __ldg(d + 2) : 0.0f, p);
-  if (!has_weight) r = g = b = 0.0f;
-  if (is_nan) {
-    r = 0.0f;
-    g = 255.0f;
-    b = 255.0f;
-  } else if (neg_weight) {
-    const float mag = -255.0f * wgt;
-    r = mag;
-    g = 0.0f;
-    b = mag;
+                  int n, int w, PostParams p) {
+  const int g = blockIdx.x * THREADS + threadIdx.x;
+  const int first = g * PIX;
+  if (first >= n) return;
+  const bool whole = first + PIX <= n;
+  float4 a[PIX];
+#pragma unroll
+  for (int j = 0; j < PIX; ++j)
+    a[j] = whole || first + j < n ? __ldg(accum + first + j)
+                                  : make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+  float c[PIX][3];
+#pragma unroll
+  for (int j = 0; j < PIX; ++j) {
+    const float safe_w = a[j].w > 0.001f ? a[j].w : 1.0f;
+    c[j][0] = fmaxf(a[j].x / safe_w, 0.0f);
+    c[j][1] = fmaxf(a[j].y / safe_w, 0.0f);
+    c[j][2] = fmaxf(a[j].z / safe_w, 0.0f);
   }
-  out[i] = make_uchar4(to_u8(r), to_u8(g), to_u8(b), 255);
+  if (p.exposure_on) {
+#pragma unroll
+    for (int j = 0; j < PIX; ++j)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) c[j][k] = c[j][k] * p.exposure_scale;
+  }
+  if (p.tonemapping) {
+#pragma unroll
+    for (int j = 0; j < PIX; ++j)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) c[j][k] = 1.0f - expf(-c[j][k]);
+  }
+  if (p.srgb) {
+#pragma unroll
+    for (int j = 0; j < PIX; ++j)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        c[j][k] = powf(fmaxf(c[j][k], 0.0f), (float)(1.0 / 2.23333));
+  }
+  if (p.contrast_on) {
+#pragma unroll
+    for (int j = 0; j < PIX; ++j)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) c[j][k] = contrast_curve(c[j][k], p);
+  }
+#pragma unroll
+  for (int j = 0; j < PIX; ++j)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) c[j][k] = c[j][k] * 255.0f;
+  if (p.dither) {
+    int y = first / w, x = first - y * w;
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) {
+      const float *d = tile + ((y & (TILE - 1)) * TILE + (x & (TILE - 1))) * 3;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        c[j][k] = c[j][k] + 0.5f + remap_tpdf(__ldg(d + k));
+      if (++x == w) {
+        x = 0;
+        ++y;
+      }
+    }
+  }
+  unsigned px[PIX];
+#pragma unroll
+  for (int j = 0; j < PIX; ++j) {
+    const float wgt = a[j].w;
+    float r = c[j][0], gr = c[j][1], b = c[j][2];
+    if (!(wgt > 0.001f)) r = gr = b = 0.0f;
+    if (isnan(a[j].x) || isnan(a[j].y) || isnan(a[j].z) || isnan(wgt)) {
+      r = 0.0f;
+      gr = 255.0f;
+      b = 255.0f;
+    } else if (wgt < -0.01f) {
+      const float mag = -255.0f * wgt;
+      r = mag;
+      gr = 0.0f;
+      b = mag;
+    }
+    px[j] = to_u8(r) | to_u8(gr) << 8 | to_u8(b) << 16 | 255u << 24;
+  }
+  if (whole) {
+#pragma unroll
+    for (int q = 0; q < PIX / 4; ++q)
+      reinterpret_cast<uint4 *>(out + first)[q] =
+          make_uint4(px[4 * q], px[4 * q + 1], px[4 * q + 2], px[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < PIX; ++j)
+      if (first + j < n) reinterpret_cast<unsigned *>(out)[first + j] = px[j];
+  }
 }
 
 }  // namespace
@@ -110,8 +188,9 @@ extern "C" int post_rgba8_launch(const void *accum, const void *tile,
   PostParams p{exposure_scale, midpoint, contrast, mid_div, y_hi,
                one_minus_mid, exposure_on, tonemapping, srgb, contrast_on,
                dither};
-  post_rgba8_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+  const int groups = (n + PIX - 1) / PIX;
+  post_rgba8_kernel<<<(groups + THREADS - 1) / THREADS, THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      (const float4 *)accum, (const float *)tile, (uchar4 *)out, h, w, p);
+      (const float4 *)accum, (const float *)tile, (uchar4 *)out, n, w, p);
   return (int)cudaGetLastError();
 }

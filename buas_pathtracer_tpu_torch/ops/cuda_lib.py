@@ -178,7 +178,9 @@ def load():
             getattr(lib, f"{name}_blocks").argtypes = [ci]
         lib.tristream_closest_launch.restype = ci
         lib.tristream_closest_launch.argtypes = [
-            vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+            vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp]
+        lib.tristream_blocks.restype = ci
+        lib.tristream_blocks.argtypes = []
         lib.post_rgba8_launch.restype = ci
         lib.post_rgba8_launch.argtypes = [
             vp, vp, vp, ci, ci, cf, cf, cf, cf, cf, cf, ci, ci, ci, ci, ci,

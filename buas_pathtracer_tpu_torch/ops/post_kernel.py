@@ -43,6 +43,8 @@ def post_rgba8(accum, tile, settings) -> torch.Tensor:
         return post_rgba8_plain(accum, tile, settings)
     if accum.device.type != "cuda":
         raise ValueError(f"no post_rgba8 for device {accum.device}")
+    if accum.data_ptr() % 16:
+        raise ValueError("accum must be 16-byte aligned (float4 pixels)")
     lib = cuda_lib.load()
     h, w, _ = accum.shape
     out = torch.empty((h, w, 4), dtype=torch.uint8, device=accum.device)

@@ -2,10 +2,10 @@
 
 Counterpart of ``buas_pathtracer_tpu/ops/pallas_tristream.py``
 (``intersect_tristream`` :86, ``pack_tris`` :130).  ``intersect_tristream``
-launches ``csrc/tristream.cu`` for CUDA tensors and runs
-``intersect_tristream_plain`` for CPU tensors; there is no fallback from one
-to the other.  It is an entry point of its own, as in the JAX package: the
-renderer walks the BVH instead.
+launches ``csrc/tristream.cu`` (its core: ``csrc/tristream.cuh``) for CUDA
+tensors and runs ``intersect_tristream_plain`` for CPU tensors; there is no
+fallback from one to the other.  It is an entry point of its own, as in the
+JAX package: the renderer walks the BVH instead.
 
 The stream is a (T, 10) float32 table of rows [a.xyz, e1.xyz, e2.xyz, id]
 with world-space triangles; a row whose id is negative is padding and never
@@ -26,6 +26,15 @@ from .wide_bvh import KIND_TRIS, WIDE_LEAF
 TRI_EPS = 1e-9
 BIG_T = 3.0e38
 TRI_W = 10
+# rays of one stream block of the kernel (csrc/tristream.cuh THREADS x RAYS)
+BLOCK_RAYS = 512
+# blockIdx.y bounds the stream's splits
+MAX_SPLITS = 65535
+# the grid holds this many waves of the blocks resident on the card: with
+# one wave, the blocks that finish first leave their SMs idle (65,536 rays
+# x 61,440 triangles on an H100 80GB HBM3 at 700 W: 6.49 ms with 7 splits,
+# 5.68 ms with 115; PERF.md, the triangle stream's steps)
+SPLIT_WAVES = 16
 # the plain version tests rays against triangles in chunks of at most this
 # many (ray, triangle) pairs, so the CPU never holds N x T
 PLAIN_CHUNK_PAIRS = 1 << 22
@@ -57,6 +66,17 @@ def tris_from_rows(rows: torch.Tensor) -> torch.Tensor:
     ids = leaf[:, 2][:, None] + k.to(torch.float32)
     used = k[None, :] < count[:, None]
     return torch.cat([slots[used], ids[used][:, None]], dim=1).contiguous()
+
+
+def stream_splits(n: int, n_tris: int, resident_blocks: int) -> int:
+    """Splits of the stream for ``n`` rays: as many as make the grid of
+    (ray tiles) x (splits) SPLIT_WAVES waves of the blocks resident on the
+    card, at least 1 and at most one per triangle."""
+    if resident_blocks < 1:
+        raise RuntimeError("the card's occupancy query returned no blocks")
+    tiles = max(1, -(-n // BLOCK_RAYS))
+    return max(1, min(SPLIT_WAVES * resident_blocks // tiles, n_tris,
+                      MAX_SPLITS))
 
 
 def _check(ray_o: Vec3, ray_d: Vec3, tris):
@@ -91,21 +111,44 @@ def intersect_tristream(ray_o: Vec3, ray_d: Vec3, tris):
         raise ValueError(f"no intersect_tristream for device {tris.device}")
     lib = cuda_lib.load()
     n = ray_o.x.shape[0]
+    n_tris = tris.shape[0]
     dev = tris.device
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tid = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
+    # per ray the merged key of the splits' hits, set by the launch
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
+        splits = stream_splits(n, n_tris, lib.tristream_blocks())
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tristream_closest_launch(
-            tris.data_ptr(), tris.shape[0], n, ray_o.x.data_ptr(),
+            tris.data_ptr(), n_tris, n, ray_o.x.data_ptr(),
             ray_o.y.data_ptr(), ray_o.z.data_ptr(), ray_d.x.data_ptr(),
-            ray_d.y.data_ptr(), ray_d.z.data_ptr(), t.data_ptr(),
-            tid.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
+            ray_d.y.data_ptr(), ray_d.z.data_ptr(), keys.data_ptr(), splits,
+            t.data_ptr(), tid.data_ptr(), u.data_ptr(), v.data_ptr(),
+            stream)
     cuda_lib.check(rc, "tristream_closest")
     LAUNCHES["tristream_closest"] += 1
     return t, tid, u, v
+
+
+def first_half(o: Vec3, d: Vec3, q):
+    """The test up to the exact u test, as the kernel's ``first_half``:
+    rays ``o``, ``d`` (Vec3 of (N, 1)) against triangle columns ``q``
+    ((10, 1, C) rows [a.xyz, e1.xyz, e2.xyz, id]).  Returns tvec (tx, ty,
+    tz), the reciprocal of det, u and ok: det outside +-TRI_EPS and u in
+    [0, 1], each (N, C)."""
+    px = d.y * q[8] - d.z * q[7]
+    py = d.z * q[6] - d.x * q[8]
+    pz = d.x * q[7] - d.y * q[6]
+    det = q[3] * px + q[4] * py + q[5] * pz
+    ok = (det <= -TRI_EPS) | (det >= TRI_EPS)
+    inv_det = 1.0 / torch.where(ok, det, 1.0)
+    tx, ty, tz = o.x - q[0], o.y - q[1], o.z - q[2]
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    ok = ok & (u >= 0.0) & (u <= 1.0)
+    return tx, ty, tz, inv_det, u, ok
 
 
 def intersect_tristream_plain(ray_o: Vec3, ray_d: Vec3, tris):
@@ -125,19 +168,10 @@ def intersect_tristream_plain(ray_o: Vec3, ray_d: Vec3, tris):
     rows = torch.arange(n, device=dev)
     for c0 in range(0, tris.shape[0], chunk):
         q = tris[c0:c0 + chunk].T[:, None, :]  # (10, 1, C)
-        ax, ay, az = q[0], q[1], q[2]
         e1x, e1y, e1z = q[3], q[4], q[5]
         e2x, e2y, e2z = q[6], q[7], q[8]
         tid = q[9]
-        px = d.y * e2z - d.z * e2y
-        py = d.z * e2x - d.x * e2z
-        pz = d.x * e2y - d.y * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        ok = (det <= -TRI_EPS) | (det >= TRI_EPS)
-        inv_det = 1.0 / torch.where(ok, det, 1.0)
-        tx, ty, tz = o.x - ax, o.y - ay, o.z - az
-        u = (tx * px + ty * py + tz * pz) * inv_det
-        ok = ok & (u >= 0.0) & (u <= 1.0)
+        tx, ty, tz, inv_det, u, ok = first_half(o, d, q)
         qx = ty * e1z - tz * e1y
         qy = tz * e1x - tx * e1z
         qz = tx * e1y - ty * e1x

@@ -14,7 +14,12 @@ through the split-table walk, and the dense triangle-stream entry point on
 the bench scene.  Each traversal kernel is held to its plain version with
 equal outputs and equal stats (rows read, triangle tests) on every wave; each
 wave's record carries its time, bound, plain time, lane utilisation and the
-kernel's registers and spills from nvcc's report.  It prints one JSON line of
+kernel's registers and spills from nvcc's report.  The post and
+triangle-stream records add an issue bound: the SASS instructions
+(``cuobjdump -sass``) that the run's path issues per pixel or per
+ray-triangle pair, at one warp instruction per clock per scheduler and the
+SM clock nvidia-smi reports under load; the post kernel is timed by its
+device time, with the L2 warm and flushed.  It prints one JSON line of
 kernel records.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; any failed phase
 raises and the script exits non-zero without that line.  Without a CUDA
@@ -25,6 +30,7 @@ Imports nothing of JAX or of the JAX package ``buas_pathtracer_tpu``.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +76,317 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps):
+    """Mean ms of ``fn`` with a cold L2: before each call a 128 MB buffer
+    (2.5x the H100's 50 MB L2) is written, then events are recorded around
+    that call alone.  One warm-up call first."""
+    import torch
+    buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(reps):
+        buf.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def device_ms(fn, reps, kernel, flush=False):
+    """Mean device time (ms) of the launches of CUDA kernels whose name
+    holds ``kernel``, over ``reps`` calls of ``fn`` under torch.profiler:
+    the kernel's own time on the card, whatever the host spends between
+    launches.  ``flush``: a 128 MB buffer (2.5x the H100's 50 MB L2) is
+    written before each call, so each launch finds a cold L2.  One
+    warm-up call first.  None when the profiler records no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush:
+                buf.fill_(1.0)
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            total += us
+            count += e.count
+    return total / 1e3 / count if count else None
+
+
+def sm_clock_under(fn, seconds=0.5):
+    """Mean SM clock (MHz) that nvidia-smi reports every 100 ms while ``fn``
+    runs back to back for ``seconds``; the sample taken before the load
+    starts is dropped.  None when nvidia-smi gives no sample."""
+    import torch
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "100"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        proc.stdout.readline()  # sampling has started
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    vals = [float(x) for x in out.split() if x.strip().isdigit()]
+    return sum(vals) / len(vals) if vals else None
+
+
+# ---------------------------------------------------------------------------
+# SASS instruction counts (cuobjdump), for the issue bounds
+# ---------------------------------------------------------------------------
+
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+SASS_FUNC = re.compile(r"Function\s*:\s*(\S+)")
+SASS_PARAM = re.compile(
+    r"^U?LDC(?:\.64)?\s+(U?R\d+),\s*c\[0x0\]\[(0x[0-9a-f]+)\]")
+SASS_CONST = re.compile(r"c\[0x0\]\[(0x[0-9a-f]+)\]")
+
+
+def sass_functions(text):
+    """``cuobjdump -sass`` text -> {kernel name: [(address, instruction)]}
+    (the instruction without its trailing ';'; names as cuda_lib gives
+    them)."""
+    from buas_pathtracer_tpu_torch.ops.cuda_lib import _kernel_name
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = SASS_FUNC.search(line)
+        if m:
+            cur = out.setdefault(_kernel_name(m.group(1)), [])
+            continue
+        m = SASS_LINE.search(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2).strip()))
+    return out
+
+
+def sass_path(ins, start, stop=None, params=None, vote=False, info=None):
+    """The instructions one thread issues from address ``start`` until an
+    unguarded EXIT or the instruction at ``stop`` (counted), NOPs left out.
+    Branches: unguarded ones are followed; a guard is evaluated where its
+    predicate is known: a comparison of a kernel parameter with zero (its
+    value in ``params``, {constant-bank offset: value}), a VOTE.ANY
+    (``vote``), or a float ``>= 0`` test (taken as true: the counted
+    operands are finite and non-negative).  Other guards fall through,
+    except a forward branch over a CALL (the IEEE division's slow path),
+    which is taken.  ``info``, where given, receives "reads": the offsets
+    of ``params`` that the path reads, and "unresolved": the addresses of
+    the branches on the path whose guard derives from one of ``params``
+    but could not be evaluated."""
+    params = params or {}
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    regs, preds, path = {}, {}, []
+    # registers and predicates that derive from ``params`` in a way the
+    # walk does not evaluate
+    tainted, reads, unresolved = set(), set(), []
+    i, steps = at[start], 0
+    while i < len(ins) and steps < 200000:
+        steps += 1
+        addr, text = ins[i]
+        guard = re.match(r"@(!?)(U?P\d)\s+", text)
+        body = text[guard.end():] if guard else text
+        op = body.split()[0] if body else ""
+        if op != "NOP":
+            path.append((addr, body))
+        if addr == stop:
+            break
+        args = [a.strip() for a in body[len(op):].split(",")]
+        consts = {int(c, 16) for c in SASS_CONST.findall(body)} & set(params)
+        reads |= consts
+        srcs = re.findall(r"U?R\d+|U?P\d", ", ".join(args[1:]))
+        derived = bool(consts) or any(
+            r in tainted or regs.get(r) in params for r in srcs)
+        if args and re.fullmatch(r"U?R\d+", args[0]):
+            regs.pop(args[0], None)  # overwritten
+            tainted.discard(args[0])
+        m = SASS_PARAM.match(body)
+        if m:
+            regs[m.group(1)] = int(m.group(2), 16)
+            if ".64" in op:
+                nxt = re.sub(r"\d+$", lambda x: str(int(x.group()) + 1),
+                             m.group(1))
+                regs[nxt] = int(m.group(2), 16) + 4
+                reads |= {regs[nxt]} & set(params)
+        elif op == "P2R" and len(args) == 4:
+            # a predicate saved into a register (restored by a compare
+            # of the register with zero)
+            bit = int(args[3], 16)
+            if bit and bit & (bit - 1) == 0:
+                src = f"P{bit.bit_length() - 1}"
+                regs[args[0]] = ("pred", preds.get(src))
+                if src in tainted:
+                    tainted.add(args[0])
+        elif derived and args and re.fullmatch(r"U?R\d+", args[0]):
+            tainted.add(args[0])
+        dst = args[0] if args and re.fullmatch(r"U?P\d", args[0]) else None
+        if dst:
+            val = None
+            if op.startswith("VOTE.ANY"):
+                val = vote
+            elif re.match(r"U?ISETP\.(NE|EQ)", op) and len(args) >= 4:
+                a, b = args[2], args[3]
+                reg = b if a in ("RZ", "URZ") else a
+                c = SASS_CONST.fullmatch(reg)
+                src = int(c.group(1), 16) if c else regs.get(reg)
+                nz = None
+                if isinstance(src, tuple):
+                    nz = src[1]
+                elif src in params:
+                    nz = params[src] != 0
+                if nz is not None and {a, b} & {"RZ", "URZ"}:
+                    val = nz if ".NE" in op else not nz
+            elif re.match(r"FSETP\.GEU?\.AND$", op) and len(args) >= 4 \
+                    and args[3] == "RZ" and args[1] == "PT":
+                val = True
+            preds[dst] = val
+            if val is None and derived:
+                tainted.add(dst)
+            else:
+                tainted.discard(dst)
+        taken = None
+        if op in ("BRA", "EXIT"):
+            if guard is None:
+                taken = True
+            else:
+                v = preds.get(guard.group(2))
+                if v is not None:
+                    taken = v != (guard.group(1) == "!")
+                elif guard.group(2) in tainted:
+                    unresolved.append(addr)
+        if op == "EXIT":
+            if taken:
+                break
+            i += 1
+            continue
+        if op == "BRA":
+            m = re.search(r"0x([0-9a-f]+)", body)
+            target = int(m.group(1), 16) if m else None
+            if taken is None:
+                skipped = [t for a, t in ins[i + 1:] if target and a < target]
+                taken = target is not None and target > addr and any(
+                    t.split()[0].startswith("CALL") for t in skipped)
+            if taken and target in at:
+                i = at[target]
+                continue
+        i += 1
+    if info is not None:
+        info["reads"], info["unresolved"] = reads, unresolved
+    return [t for _, t in path]
+
+
+def sass_inner_loop(ins):
+    """(start, back-edge address) of the innermost loop holding a MUFU.RCP:
+    the per-pair test's reciprocal."""
+    loops = []
+    for i, (addr, text) in enumerate(ins):
+        m = re.search(r"BRA\s+.*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            lo = int(m.group(1), 16)
+            if any(t.startswith("MUFU.RCP") for a, t in ins
+                   if lo <= a <= addr):
+                loops.append((addr - lo, lo, addr))
+    if not loops:
+        return None
+    _, lo, hi = min(loops)
+    return lo, hi
+
+
+def sass_report():
+    """cuobjdump -sass of the loaded kernel library, split by kernel; None
+    where the toolkit has no cuobjdump."""
+    from buas_pathtracer_tpu_torch.ops import cuda_lib
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", cuda_lib._so_path()],
+                         capture_output=True, text=True, timeout=300)
+    return sass_functions(out.stdout) if out.returncode == 0 else None
+
+
+def k6_sass_counts(ins):
+    """Instructions per (ray, triangle) pair in the stream kernel's inner
+    loop: when every ray slot's vote finds no lane in play (the second half
+    skipped) and when every vote finds one.  The pairs of one iteration are
+    its MUFU.RCP (one reciprocal per pair)."""
+    loop = sass_inner_loop(ins)
+    if loop is None:
+        return None
+    culled = sass_path(ins, loop[0], stop=loop[1], vote=False)
+    full = sass_path(ins, loop[0], stop=loop[1], vote=True)
+    pairs = sum(t.startswith("MUFU.RCP") for t in culled)
+    if pairs == 0:
+        return None
+    return {"culled": len(culled) / pairs, "full": len(full) / pairs,
+            "pairs_per_iteration": pairs}
+
+
+# post_rgba8_kernel's parameters in constant bank 0 on sm_90 start at
+# 0x210: accum, tile and out (8 bytes each), n and w (4 each), then
+# PostParams, whose five int flags follow its six floats (csrc/post.cu
+# asserts that layout; tests/test_torch_post.py holds it to these names)
+SM90_PARAM_BASE = 0x210
+POST_PARAMS_AT = SM90_PARAM_BASE + 3 * 8 + 2 * 4
+POST_FLAGS = ("exposure_on", "tonemapping", "srgb", "contrast_on", "dither")
+POST_FLAG_OFFSETS = {k: POST_PARAMS_AT + 6 * 4 + 4 * i
+                     for i, k in enumerate(POST_FLAGS)}
+
+
+def k3_sass_count(ins, flags):
+    """Per pixel, on the path one thread issues from entry to EXIT with the
+    settings' flags (its pixels are its 16-byte accumulation loads): the
+    instructions, and the fp32 operations among them (FADD, FMUL, FMNMX
+    one each, FFMA two).  Raises unless the path reads every flag at its
+    offset and evaluates every branch that depends on one: otherwise the
+    offsets are stale and the path would count the wrong blocks."""
+    params = {POST_FLAG_OFFSETS[k]: v for k, v in flags.items()}
+    info = {}
+    path = sass_path(ins, ins[0][0], params=params, info=info)
+    missing = [k for k in POST_FLAGS if POST_FLAG_OFFSETS[k] not in
+               info["reads"]]
+    if missing or info["unresolved"]:
+        raise AssertionError(
+            f"post_rgba8_kernel's SASS: flags {missing} not read at their "
+            f"offsets, branches on a flag not evaluated at "
+            f"{[hex(a) for a in info['unresolved']]}: POST_FLAG_OFFSETS "
+            f"does not match csrc/post.cu")
+    pix = sum(t.startswith("LDG.E.128") for t in path)
+    if not pix:
+        raise AssertionError("post_rgba8_kernel's SASS path loads no pixel")
+    ops = sum({"FADD": 1, "FMUL": 1, "FMNMX": 1, "FFMA": 2}.get(
+        t.split()[0].split(".")[0], 0) for t in path)
+    return {"per_pixel": len(path) / pix, "fp32_ops_per_pixel": ops / pix}
+
+
+def post_flags(settings):
+    """post_rgba8_launch's flags for a PostProcessSettings."""
+    return dict(exposure_on=int(settings.exposure != 0.0),
+                tonemapping=int(bool(settings.tonemapping)),
+                srgb=int(bool(settings.srgb_transform)),
+                contrast_on=int(settings.contrast != 0.0),
+                dither=int(bool(settings.dither)))
+
+
+def issue_ms(count, sms, mhz):
+    """Time to issue ``count`` thread instructions at one warp instruction
+    per clock on each of an SM's 4 schedulers."""
+    return count / (sms * 4 * 32 * mhz * 1e6) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -610,27 +927,46 @@ def run_stress(dev, card, report):
     return records, info
 
 
-def run_tristream(ps, o, d, card, report):
+def vote_share(o, d, tris):
+    """Share of the K6 kernel's warp votes that find a lane in play: for
+    each group of 32 consecutive rays (one ray slot of a warp) and each
+    non-padding triangle, whether any ray passes the det and u tests (the
+    plain version's first half).  The cull skips the rest of the test for
+    the others."""
+    import torch
+    from buas_pathtracer_tpu_torch.core.vec import Vec3
+    from buas_pathtracer_tpu_torch.ops.tristream import first_half
+    n = o.x.shape[0]
+    g = -(-n // 32)
+    pad = g * 32 - n
+    col = [torch.nn.functional.pad(c, (0, pad))[:, None] for c in (*o, *d)]
+    ro, rd = Vec3(*col[:3]), Vec3(*col[3:])
+    live = tris[tris[:, 9] >= 0]
+    passed = 0
+    for c0 in range(0, live.shape[0], 256):
+        ok = first_half(ro, rd, live[c0:c0 + 256].T[:, None, :])[-1]
+        passed += int(ok.view(g, 32, -1).any(dim=1).sum())
+    return passed / (g * max(1, live.shape[0]))
+
+
+def run_tristream(ps, sets, card, report, sass):
     """Phase 15: the dense triangle-stream entry point on the bench scene's
-    world triangles and its primary rays; returns the kernel record."""
+    world triangles and its primary rays (the entry point's run, counted);
+    then the same on the incoherent ray set.  Both held equal to the plain
+    version, timed, and their vote pass shares and issue bounds computed.
+    Returns the kernel record."""
     import torch
     from buas_pathtracer_tpu_torch.ops import packet, tristream
 
     tris = tristream.tris_from_rows(ps.wide_rows)
+    o, d, _, _ = sets["primary"]
     n, n_tris = int(o.x.shape[0]), int(tris.shape[0])
     reset_launches()
     out = tristream.intersect_tristream(o, d, tris)  # the entry point's run
     torch.cuda.synchronize()
     launches = read_launches()["tristream_closest"]
-    ref = tristream.intersect_tristream_plain(o, d, tris)
-    same = [bool(torch.equal(a, b)) for a, b in zip(out, ref)]
-    hits = int((ref[1] >= 0).sum())
-    log(f"[15] tristream_closest {n} bench primary rays x {n_tris} "
-        f"triangles: launches {launches}, hits {hits}, kernel vs plain equal "
-        f"(t, id, u, v) {same}")
-    if launches != 1 or not all(same):
-        raise AssertionError("tristream_closest disagrees with its plain "
-                             "version or did not launch")
+    if launches != 1:
+        raise AssertionError(f"tristream_closest launched {launches} times")
     big = torch.full((n,), 3.0e38, device=o.x.device)
     none = torch.full((n,), -1, dtype=torch.int32, device=o.x.device)
     w = packet.wide_traverse(ps.wide_rows, ps.wide_depth, o, d, big, none,
@@ -639,26 +975,68 @@ def run_tristream(ps, o, d, card, report):
     agree = float((out[0] == w[0])[mesh].float().mean())
     log(f"[15] rays whose wide_traverse hit is a triangle: {int(mesh.sum())};"
         f" tristream t equal on {agree * 100:.3f}% of them (information)")
-    ms = cuda_ms(lambda: tristream.intersect_tristream(o, d, tris),
-                 KERNEL_REPS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # SASS instructions per pair of the inner loop, with every ray slot's
+    # vote culled and with none; a run issues culled + share x (full -
+    # culled) per pair, share being the votes that find a lane in play
+    counts = k6_sass_counts(sass["tristream_closest"]) if sass else None
+    log(f"[15] tristream_closest SASS instructions per pair: "
+        f"{counts or 'not measured'}")
+    per_set = {}
+    for name in ("primary", "incoherent_60pct_dead"):
+        o, d, _, _ = sets[name]
+        if name != "primary":
+            out = tristream.intersect_tristream(o, d, tris)
+        ref = tristream.intersect_tristream_plain(o, d, tris)
+        same = [bool(torch.equal(a, b)) for a, b in zip(out, ref)]
+        hits = int((ref[1] >= 0).sum())
+        log(f"[15] tristream_closest {name}: {n} rays x {n_tris} triangles, "
+            f"hits {hits}, kernel vs plain equal (t, id, u, v) {same}")
+        if not all(same):
+            raise AssertionError(f"tristream_closest disagrees with its plain "
+                                 f"version on the {name} rays")
+        ms = cuda_ms(lambda: tristream.intersect_tristream(o, d, tris),
+                     KERNEL_REPS)
+        mhz = sm_clock_under(lambda: tristream.intersect_tristream(o, d, tris))
+        share = vote_share(o, d, tris)
+        issue = None
+        if counts and mhz:
+            per_pair = counts["culled"] + share * (counts["full"]
+                                                   - counts["culled"])
+            issue = issue_ms(n * n_tris * per_pair, sms, mhz)
+        per_set[name] = dict(ms=ms, vote_share=share, sm_mhz=mhz,
+                             issue_ms=issue)
+        log(f"[15] tristream_closest {name}: kernel {ms:.4f} ms, vote pass "
+            f"share {share:.5f}, SM clock {mhz} MHz, issue bound "
+            f"{'not measured' if issue is None else f'{issue:.4f} ms'} "
+            f"({card})")
+    o, d, _, _ = sets["primary"]
     plain_ms = cuda_ms(lambda: tristream.intersect_tristream_plain(
         o, d, tris), PLAIN_REPS)
-    # operations: 46 fp32 per ray-triangle test (csrc/tristream.cu); bytes:
+    # operations: 46 fp32 per ray-triangle test (csrc/tristream.cuh); bytes:
     # rays in (24 B) and out (16 B), the stream once
     t_o = n * n_tris * 46 / PEAK_FP32_PER_S * 1e3
     t_b = (n * 40 + n_tris * 40) / PEAK_BYTES_PER_S * 1e3
-    log(f"[15] tristream_closest: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms,"
-        f" bound {max(t_b, t_o):.4f} ms (operations {t_o:.4f}, bytes "
-        f"{t_b:.4f}) ({card})")
+    prim = per_set["primary"]
+    log(f"[15] tristream_closest: kernel {prim['ms']:.4f} ms, plain "
+        f"{plain_ms:.2f} ms, bound {max(t_b, t_o):.4f} ms (operations "
+        f"{t_o:.4f}, bytes {t_b:.4f}) ({card})")
     return dict(
         k="K6", name="tristream_closest", route="cuda",
         source="buas_pathtracer_tpu_torch/csrc/tristream.cu",
         replaces="buas_pathtracer_tpu/ops/pallas_tristream.py:35",
         launches=launches, path="entry point ops/tristream.intersect_tristream"
-        " (not on a frame)", parity="equal to plain (t, id, u, v)",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o),
+        " (not on a frame)", parity="equal to plain (t, id, u, v) on the "
+        "primary and incoherent rays", max_abs_err=0.0, ms=prim["ms"],
+        plain_ms=plain_ms, bound_ms=max(t_b, t_o),
         bound_by="bytes" if t_b >= t_o else "operations", library_ms=None,
-        **ptxas_fields(report, "tristream_kernel"))
+        issue_ms=prim["issue_ms"] if prim["issue_ms"] else "not measured",
+        sass_per_pair=counts or "not measured",
+        vote_share=prim["vote_share"], sm_mhz=prim["sm_mhz"], sms=sms,
+        incoherent={k: v if v is not None else "not measured"
+                    for k, v in per_set["incoherent_60pct_dead"].items()},
+        **ptxas_fields(report, "tristream_closest"),
+        finish=ptxas_fields(report, "tristream_finish"))
 
 
 # ---------------------------------------------------------------------------
@@ -709,8 +1087,12 @@ def main():
             f" stack frame {r['stack_frame']} B, shared memory {r['smem']} B")
     for kname in ("wide_traverse_closest", "wide_traverse_occlusion",
                   "split_traverse_closest", "split_traverse_occlusion",
-                  "tristream_kernel", "post_rgba8_kernel"):
+                  "tristream_closest", "tristream_finish",
+                  "post_rgba8_kernel"):
         ptxas_fields(report, kname)  # fails when the report lacks one
+    sass = sass_report()
+    log(f"[2] cuobjdump -sass: "
+        f"{'%d kernels' % len(sass) if sass else 'not available'}")
     t0 = time.perf_counter()
     if not native.available():
         raise RuntimeError("native builders unavailable (g++)")
@@ -911,9 +1293,21 @@ def main():
         records[0], k="K7", name="wide_traverse<closest> primary wave (K7)",
         replaces="buas_pathtracer_tpu/ops/pallas_packet.py:71"))
     post_in = accum.contiguous()
-    ms = cuda_ms(lambda: post_kernel.post_rgba8(post_in, tile,
-                                                scene.post_settings),
-                 KERNEL_REPS)
+
+    def post_fn():
+        return post_kernel.post_rgba8(post_in, tile, scene.post_settings)
+
+    # ms and ms_cold_l2: CUDA events around back-to-back calls, and around
+    # each call alone after an L2 flush; the kernel takes less time than the
+    # wrapper's host work, so these hold host time too.  device_ms and
+    # device_ms_cold_l2: the kernel's own time on the card (torch.profiler),
+    # L2 warm and flushed
+    ms = cuda_ms(post_fn, KERNEL_REPS)
+    ms_cold = cuda_ms_cold(post_fn, 50)
+    dev_ms = device_ms(post_fn, 50, "post_rgba8")
+    dev_cold = device_ms(post_fn, 50, "post_rgba8", flush=True)
+    if dev_ms is None or dev_cold is None:
+        raise AssertionError("the profiler recorded no post_rgba8 launch")
     plain_ms = cuda_ms(lambda: post_kernel.post_rgba8_plain(
         post_in, tile, scene.post_settings), PLAIN_REPS)
     k_img = post_kernel.post_rgba8(post_in, tile, scene.post_settings)
@@ -922,20 +1316,43 @@ def main():
     if frame_err > 1:
         raise AssertionError("post_rgba8 disagrees on the bench frame")
     # bytes: accumulation in (16 B) and RGBA out (4 B) per pixel, the tile
-    # once; operations: about 30 fp32 operations per channel
+    # once; operations: the fp32 operations on the SASS path of these
+    # settings (k3_sass_count), not measured without cuobjdump
+    pcount = (k3_sass_count(sass["post_rgba8_kernel"],
+                            post_flags(scene.post_settings))
+              if sass else None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_clock_under(post_fn)
     nbytes = H * W * 20 + 64 * 64 * 3 * 4
     t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_o = H * W * 3 * 30 / PEAK_FP32_PER_S * 1e3
-    log(f"[7] post_rgba8 {W}x{H}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms,"
-        f" bound {max(t_b, t_o):.4f} ms, max |diff| {frame_err} LSB ({card})")
+    t_o = (H * W * pcount["fp32_ops_per_pixel"] / PEAK_FP32_PER_S * 1e3
+           if pcount else None)
+    bound = max(t_b, t_o or 0.0)
+    issue = (issue_ms(H * W * pcount["per_pixel"], sms, mhz)
+             if pcount and mhz else None)
+    log(f"[7] post_rgba8 {W}x{H}: kernel {ms:.4f} ms (events around "
+        f"back-to-back calls), {ms_cold:.4f} ms (events around each call, "
+        f"L2 cold), device time {dev_ms:.4f} ms (L2 warm), {dev_cold:.4f} ms"
+        f" (L2 cold), plain {plain_ms:.3f} ms, bound {bound:.4f} ms (bytes "
+        f"{t_b:.4f}, operations "
+        f"{'not measured' if t_o is None else f'{t_o:.4f}'}), SASS per "
+        f"pixel {pcount or 'not measured'}, SM clock {mhz} MHz, issue bound "
+        f"{'not measured' if issue is None else f'{issue:.4f} ms'}, "
+        f"max |diff| {frame_err} LSB ({card})")
     records.append(dict(
         k="K3", name="post_rgba8", route="cuda",
         source="buas_pathtracer_tpu_torch/csrc/post.cu",
         replaces="buas_pathtracer_tpu/ops/pallas_post.py:32",
         launches=launches["post_rgba8"], parity="within 1 LSB of plain",
         max_abs_err=max(post_err, frame_err),
-        ms=ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o),
-        bound_by="bytes" if t_b >= t_o else "operations", library_ms=None,
+        ms=ms, ms_cold_l2=ms_cold, device_ms=dev_ms,
+        device_ms_cold_l2=dev_cold, plain_ms=plain_ms, bound_ms=bound,
+        bound_by="bytes" if t_o is None or t_b >= t_o else "operations",
+        bound_bytes_ms=t_b,
+        bound_operations_ms=t_o if t_o is not None else "not measured",
+        library_ms=None,
+        issue_ms=issue if issue is not None else "not measured",
+        sass_per_pixel=pcount or "not measured", sm_mhz=mhz, sms=sms,
         **ptxas_fields(report, "post_rgba8_kernel")))
 
     # ---- 8. where the bench frame's time goes ----
@@ -949,8 +1366,7 @@ def main():
     records += stress_records
 
     # ---- 15. the dense triangle stream on the bench scene ----
-    o, d, _, _ = sets["primary"]
-    records.append(run_tristream(ps, o, d, card, report))
+    records.append(run_tristream(ps, sets, card, report, sass))
 
     # ---- 16. records ----
     records.sort(key=lambda r: r["k"])

@@ -149,19 +149,25 @@ def test_kernel_name(mangled, name):
 # the walk core on the host
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def build_host_lib(tmp_path_factory, source):
+    """``tests/walk_host/<source>`` and the csrc header it includes, built
+    with g++ (no FP contraction, as nvcc's -fmad=false) and loaded."""
     gxx = shutil.which("g++")
     if gxx is None:
-        pytest.skip("needs g++ to build the host walk")
-    so = str(tmp_path_factory.mktemp("walk_host") / "walk_host.so")
+        pytest.skip("needs g++ to build the host emulation")
+    so = str(tmp_path_factory.mktemp("walk_host") / source.replace(".cpp",
+                                                                   ".so"))
     build = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-pthread", f"-I{CSRC}", "-o", so,
-         os.path.join(HOST, "walk_host.cpp")],
+         "-pthread", f"-I{CSRC}", "-o", so, os.path.join(HOST, source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     assert build.returncode == 0, build.stdout.decode(errors="replace")
     return ctypes.CDLL(so)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return build_host_lib(tmp_path_factory, "walk_host.cpp")
 
 
 def _packet_scene():
