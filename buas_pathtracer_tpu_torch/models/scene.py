@@ -8,11 +8,13 @@ automatic light registration for emissive primitives.
 ``Scene.pack(device=None)`` lowers the scene to ``PackedScene``, a NamedTuple
 of tensors on one device, holding the fields the bench frame reads:
 materials, planes, primitives, lights, the 8-wide row table and its
-per-triangle normals, the sky, and for big scenes the split traversal tables
+per-triangle normals, the sky, the environment map with its sampling tables
+(``ops/envmap.py``), and for big scenes the split traversal tables
 (``v4_res``, ``v4_leaf``).  Every table the JAX package also packs is
-byte-equal to it (``tests/test_torch_scene.py``, ``test_torch_split.py``).
-The JAX package's threaded-BVH fields, triangle soup and environment maps are
-not ported; a scene with an ``env_map`` raises.
+byte-equal to it (``tests/test_torch_scene.py``, ``test_torch_split.py``,
+``test_torch_envmap.py``); the env alias indices are int64 here, value-equal
+to the JAX package's exact float values.  The JAX package's threaded-BVH
+fields and triangle soup are not part of the port.
 """
 
 from __future__ import annotations
@@ -128,6 +130,16 @@ class PackedScene(NamedTuple):
     sky_top: Vec3
     ambient_light: Vec3
 
+    # equirect environment map, (1, 1, 3) zeros when the scene has none
+    # (integrators/common.has_env), and its sampling tables (ops/envmap.py;
+    # (1,)-sized placeholders without a map)
+    env_pixels: torch.Tensor  # (He, We, 3) float32
+    env_cdf_marginal: torch.Tensor  # (He+1,)
+    env_cdf_conditional: torch.Tensor  # (He, We+1)
+    env_alias_prob: torch.Tensor  # (K,) K = He*We
+    env_alias_idx: torch.Tensor  # (K,) int64
+    env_pdf_num: torch.Tensor  # (K,)
+
     # split traversal tables (ops/wide_bvh.split_for_dma), present when the
     # unified table exceeds packet.RESIDENT_TABLE_LIMIT_BYTES; the JAX
     # package's names
@@ -156,7 +168,7 @@ class Scene:
     top_sky_color: tuple = (0.0, 0.0, 0.0)
     bot_sky_color: tuple = (0.0, 0.0, 0.0)
     ambient_light: tuple = (0.0, 0.0, 0.0)
-    env_map: Optional[np.ndarray] = None  # not ported: pack() raises
+    env_map: Optional[np.ndarray] = None  # (H, W, 3) float32 equirect
 
     materials: List[mat_mod.Material] = field(default_factory=list)
     planes: List[tuple] = field(default_factory=list)  # (n, d, mat_id)
@@ -227,9 +239,6 @@ class Scene:
         forces the choice (a scene whose root is a triangle leaf or empty
         never splits)."""
         dev = resolve_device(device)
-        if self.env_map is not None:
-            raise NotImplementedError(
-                "environment maps are not ported yet (ROADMAP.md, queue 1)")
         arrays = self._pack_arrays(bvh_method)
         arrays.update(_split_tables(arrays["wide_rows"], split))
         return _to_device(arrays, dev)
@@ -283,7 +292,7 @@ class Scene:
         wide = self._build_wide(prims, ptype, pfwd, pinv, pr, pboxr, pmesh)
 
         lights = np.array(self.lights or [0], np.int32)
-        return dict(
+        return dict(**self._env_tables(),
             mat_flags=mflags, mat_albedo=malb, mat_checker=mchk,
             mat_emission=memi, mat_ior=mior, mat_metallic=mmet,
             mat_roughness=mrgh, mat_is_medium=mmed, mat_absorb=mabs,
@@ -315,6 +324,24 @@ class Scene:
             ambient_light=np.array(self.ambient_light, np.float32),
         )
 
+    def _env_tables(self) -> Dict:
+        """The environment map and its sampling tables (JAX scene.py
+        :370-382)."""
+        if self.env_map is None:
+            return dict(env_pixels=np.zeros((1, 1, 3), np.float32),
+                        env_cdf_marginal=np.zeros(2, np.float32),
+                        env_cdf_conditional=np.zeros((1, 2), np.float32),
+                        env_alias_prob=np.ones(1, np.float32),
+                        env_alias_idx=np.zeros(1, np.int64),
+                        env_pdf_num=np.ones(1, np.float32))
+        from ..ops.envmap import build_env_alias, build_env_cdf
+        env = np.ascontiguousarray(np.asarray(self.env_map, np.float32))
+        cdf_m, cdf_c = build_env_cdf(env)
+        al_p, al_i, al_pdf = build_env_alias(env)
+        return dict(env_pixels=env, env_cdf_marginal=cdf_m,
+                    env_cdf_conditional=cdf_c, env_alias_prob=al_p,
+                    env_alias_idx=al_i, env_pdf_num=al_pdf)
+
     def _build_wide(self, prims, ptype, pfwd, pinv, pr, pboxr, pmesh):
         from ..ops import wide_bvh
         real = [i for i, p in enumerate(prims) if p["type"] != PRIM_NONE]
@@ -342,12 +369,21 @@ class Scene:
     def n_lights(self) -> int:
         return len(self.lights)
 
+    @property
+    def has_medium(self) -> bool:
+        """True when a material that a primitive or plane uses is a
+        participating medium: only then can the Whitted integrator split."""
+        used = {p["mat"] for p in self.prims}
+        used.update(m for (_, _, m) in self.planes)
+        return any(self.materials[m].is_participating_medium for m in used)
+
 
 # fields stored as Vec3: (X, 3) host arrays (or (3,) for the sky colours)
 _VEC3_FIELDS = ("mat_albedo", "mat_checker", "mat_emission", "mat_absorb",
                 "plane_n", "prim_box_r", "sky_bot", "sky_top",
                 "ambient_light")
-_INDEX_FIELDS = ("plane_mat", "prim_type", "prim_mat", "light_prim")
+_INDEX_FIELDS = ("plane_mat", "prim_type", "prim_mat", "light_prim",
+                 "env_alias_idx")
 
 
 def _split_tables(rows: np.ndarray, split: Optional[bool]) -> Dict:

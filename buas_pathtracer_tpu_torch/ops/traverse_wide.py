@@ -3,10 +3,11 @@ and occlusion.
 
 Counterpart of ``buas_pathtracer_tpu/ops/traverse_wide.py``
 (``intersect_scene`` :615-749, ``intersect_shadow_ray`` :606).  Every wave
-goes, in natural order, to ``packet.split_traverse`` when the scene packed
-split tables (``ps.v4_res``) and to ``packet.wide_traverse`` otherwise (the
-CUDA kernel on the card, its plain version on the CPU); the JAX package's
-choice between its grouped and lockstep kernels is a TPU schedule and has no
+goes through ``dispatch.walk`` (the natural route) to
+``packet.split_traverse`` when the scene packed split tables
+(``ps.v4_res``) and to ``packet.wide_traverse`` otherwise (the CUDA kernel
+on the card, its plain version on the CPU); the JAX package's choice
+between its grouped and lockstep kernels is a TPU schedule and has no
 counterpart.  Planes are tested linearly first; normals are computed
 once from the winning hit (reference intersection.cpp:526-591).  The JAX
 package gathers per-ray rows through one-hot matmuls and MXU transposes to
@@ -19,7 +20,7 @@ import torch
 
 from ..core.vec import Vec3, noz, where as vwhere
 from ..models.scene import PRIM_SPHERE, PackedScene
-from . import packet
+from . import dispatch
 from .traverse import BIG_T, Hit, _intersect_planes
 
 
@@ -28,14 +29,9 @@ def _traverse(ps: PackedScene, o: Vec3, d: Vec3, t0, ignored_prim,
     """One wave through the traversal kernel.  Returns (t, prim, tri, bv,
     bw, stats) with prim/tri as int64."""
     c = torch.Tensor.contiguous
-    rays = (Vec3(c(o.x), c(o.y), c(o.z)), Vec3(c(d.x), c(d.y), c(d.z)),
-            c(t0), ignored_prim.to(torch.int32).contiguous(), occlusion)
-    if ps.v4_res is not None:
-        out = packet.split_traverse(ps.v4_res, ps.v4_leaf, ps.wide_depth,
-                                    *rays)
-    else:
-        out = packet.wide_traverse(ps.wide_rows, ps.wide_depth, *rays)
-    t, prim, tri, bv, bw, stats = out
+    t, prim, tri, bv, bw, stats = dispatch.walk(
+        ps, Vec3(c(o.x), c(o.y), c(o.z)), Vec3(c(d.x), c(d.y), c(d.z)),
+        c(t0), ignored_prim.to(torch.int32).contiguous(), occlusion)
     return t, prim.to(torch.int64), tri.to(torch.int64), bv, bw, stats
 
 

@@ -135,9 +135,15 @@ def test_sampler_bit_exact(strategy, sample_index, per_ray):
 
 
 def test_blue_noise_not_ported():
-    x = torch.zeros(4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsmp.make_sampler(x, x, 0, strategy=tsmp.Strategy.BLUE_NOISE)
+    """The blue-noise strategy, once refused, is ported: its sampler holds
+    the JAX package's shifts and bases (tests/test_torch_sampler_bn.py has
+    the full comparison)."""
+    x = torch.arange(4, dtype=torch.int64)
+    ts = tsmp.make_sampler(x, x, 0, strategy=tsmp.Strategy.BLUE_NOISE)
+    js = jsmp.make_sampler(_j(x.numpy()), _j(x.numpy()), jnp.uint32(0),
+                           strategy=jsmp.Strategy.BLUE_NOISE)
+    _eq_f32_bits(js.bn, ts.bn)
+    _eq_f32_bits(js.pre, ts.pre)
 
 
 def test_permutation_tables_equal():

@@ -95,7 +95,17 @@ def test_splat_pass_matches_jax(filt):
 
 
 def test_unported_integrator_raises():
+    """No registry name raises any more: the six JAX names each map to
+    their integrator, an unknown name to the Advanced Pathtracer
+    (integrators.cpp:834-845)."""
+    from buas_pathtracer_tpu.runtime import render as jr
+    from buas_pathtracer_tpu_torch.runtime import render as tr
+    assert sorted(tr.INTEGRATORS) == sorted(jr.INTEGRATORS)
+    for name in jr.INTEGRATORS:
+        assert (tr.find_integrator(name).__name__
+                == jr.find_integrator(name).__name__), name
+    assert tr.find_integrator("no such integrator") is tr.adv.advanced
     sc = scene_spheres(*T)
-    sc.settings = TSettings(integrator="Whitted")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender(sc, 8, 8, device="cpu")
+    sc.settings = TSettings(integrator="Whitted", max_bounce_count=2)
+    img, _, _ = trender(sc, 8, 8, device="cpu")
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()

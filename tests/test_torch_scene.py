@@ -79,6 +79,10 @@ SCENES = {"spheres": scene_spheres, "mesh": scene_mesh,
           "packet": scene_packet}
 TABLES = ["wide_rows", "wtri_nrm16", "mat16", "prim_nrm16", "light16",
           "scene_lo", "scene_hi", "plane_d", "prim_fwd", "prim_inv", "prim_r"]
+# the env tables the JAX package packs in the port's dtypes (the alias
+# indices differ in dtype: exact floats there, int64 here)
+ENV_TABLES_PACKED = ["env_pixels", "env_cdf_marginal", "env_cdf_conditional",
+                     "env_alias_prob", "env_pdf_num"]
 
 
 def _assert_tables_equal(jps, tps):
@@ -153,10 +157,16 @@ def test_from_jax_arrays_round_trip():
 
 
 def test_env_map_refused():
-    sc = scene_spheres(*T)
-    sc.env_map = np.ones((4, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sc.pack(device="cpu")
+    """An environment map, once refused, packs: the map and its sampling
+    tables equal the JAX package's (tests/test_torch_envmap.py has the
+    rest)."""
+    env = np.ones((4, 8, 3), np.float32)
+    jsc, tsc = scene_spheres(*J), scene_spheres(*T)
+    jsc.env_map, tsc.env_map = env, env
+    jps, tps = jsc.pack(), tsc.pack(device="cpu")
+    for name in ("env_pixels", "env_alias_prob", "env_pdf_num"):
+        assert (np.asarray(getattr(jps, name)).tobytes()
+                == getattr(tps, name).numpy().tobytes()), name
 
 
 @pytest.mark.parametrize("lens", [0.0, 1.0])
