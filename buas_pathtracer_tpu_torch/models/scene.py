@@ -231,6 +231,14 @@ class Scene:
         return self._add_prim(PRIM_MESH, mat_id, transform,
                               mesh_id=len(self.meshes) - 1)
 
+    def add_csg_difference(self, mat_id: int, prim_a: int, prim_b: int,
+                           transform: Optional[Affine] = None) -> int:
+        """API stub for the reference's dormant CSG (add_test_difference,
+        scene.cpp:161-171), which has no intersection branch: the
+        primitive packs as PRIM_CSG with a zero AABB and is never hit."""
+        return self._add_prim(PRIM_CSG, mat_id, transform,
+                              csg_a=int(prim_a), csg_b=int(prim_b))
+
     # -- packing ------------------------------------------------------------
     def pack(self, device=None, bvh_method: str = "sah_binned",
              split: Optional[bool] = None) -> PackedScene:

@@ -351,6 +351,11 @@ def build_wide_scene(
             rows.append(r)
         return base
 
+    # item index of each primitive (its first position in real_prims)
+    item_of = {}
+    for j, pi in enumerate(real_prims):
+        item_of.setdefault(pi, j)
+
     # candidate refs: ('t', node) | ('m', inst, node) | ('p', prim_idx)
     #              | ('i', (prim_idx, ...)) — a multi-item TLAS leaf
     if len(real_prims) > 0:
@@ -418,9 +423,9 @@ def build_wide_scene(
             if ref[0] == "c":  # packed chunk row: own union AABB
                 return ref[4], ref[5]
             if ref[0] == "i":
-                js = [real_prims.index(pi) for pi in ref[1]]
+                js = [item_of[pi] for pi in ref[1]]
                 return item_lo[js].min(axis=0), item_hi[js].max(axis=0)
-            j = real_prims.index(ref[1])
+            j = item_of[ref[1]]
             return item_lo[j], item_hi[j]
 
         def sa_of(ref):

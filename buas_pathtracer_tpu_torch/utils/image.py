@@ -1,13 +1,58 @@
-"""Radiance .HDR writer and a procedural HDR sky.
+"""Image output: BMP, PNG and Radiance .HDR, and a procedural HDR sky.
 
-Counterpart of ``write_hdr`` (:56) and ``procedural_sky_hdr`` (:80) of
-``buas_pathtracer_tpu/utils/image.py``; numpy only.  The PNG and BMP
-writers are not part of the port yet.
+Counterpart of ``buas_pathtracer_tpu/utils/image.py``: ``write_bmp`` (:16)
+is the reference's 32bpp top-down writer (assets.cpp:671-724, used by "Take
+picture"), ``write_png`` (:33) a minimal stdlib-zlib PNG encoder,
+``write_hdr`` (:56) and ``procedural_sky_hdr`` (:80).  numpy only; the
+files are byte-equal to the JAX package's (``tests/test_torch_image.py``).
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
+
+
+def write_bmp(path: str, rgba: np.ndarray) -> None:
+    """rgba: (H, W, 4) uint8.  Stored BGRA, top-down (negative height)."""
+    h, w, _ = rgba.shape
+    pixel_bytes = rgba[..., [2, 1, 0, 3]].astype(np.uint8).tobytes()
+    # BITMAPFILEHEADER (14) + BITMAPINFOHEADER (40)
+    file_header = struct.pack("<2sIHHI", b"BM", 14 + 40 + len(pixel_bytes),
+                              0, 0, 14 + 40)
+    info_header = struct.pack("<IiiHHIIiiII", 40, w, -h, 1, 32, 0,
+                              len(pixel_bytes), 0, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(file_header)
+        f.write(info_header)
+        f.write(pixel_bytes)
+
+
+def png_bytes(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) or (H, W, 4) image -> PNG file bytes (8-bit, filter 0,
+    zlib level 6); values outside uint8 are clipped."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8:
+        rgb = np.clip(rgb, 0, 255).astype(np.uint8)
+    h, w, channels = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data +
+                struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6 if channels == 4 else 2, 0, 0,
+                       0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """rgb: (H, W, 3) or (H, W, 4) uint8."""
+    with open(path, "wb") as f:
+        f.write(png_bytes(rgb))
 
 
 def write_hdr(path: str, rgb: np.ndarray) -> None:

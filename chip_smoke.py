@@ -24,7 +24,15 @@ hero, bench and stress frames (the stress frame on its split tables), and
 timed against each other in turns; Whitted, Ground Truth, Normals and
 Distances at 1080p and the Whitted and Normals goldens;
 the blue-noise sampler built on the card equal to the CPU's, and a bench
-frame with it.  Each traversal kernel is held to its plain version with
+frame with it.  Then the session layer: the twelve built-in scenes through
+``load_scene`` and ``ProgressiveRenderer(device=None)`` at 1920x1080,
+without their asset files and with synthetic ones written at run time
+(each at 64x36 identical through the kernels and the plain versions, the
+waves of three held to the plain walk); a 16 spp Cornell Box
+``take_picture`` interrupted and resumed from its checkpoint, bit-identical
+to an uninterrupted one; the CLI in a subprocess, its PNG equal to the
+in-process render's; and the viewer on an ephemeral port, its focus pick
+equal to the plain walk's t.  Each traversal kernel is held to its plain version with
 equal outputs and equal stats (rows read, triangle tests) on every wave; each
 wave's record carries its time, bound, plain time, lane utilisation and the
 kernel's registers and spills from nvcc's report.  The post and
@@ -48,11 +56,13 @@ one wave each ([T2]).
 Imports nothing of JAX or of the JAX package ``buas_pathtracer_tpu``.
 """
 
+import contextlib
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -590,6 +600,52 @@ def image_agreement(img, ref):
     out = (diff > 2e-3 + 2e-3 * np.abs(ref)).any(axis=-1)
     rel = float((diff / np.maximum(np.abs(ref), 1e-3)).mean())
     return float(out.mean()), rel
+
+
+# ---------------------------------------------------------------------------
+# synthetic stand-ins for the built-in scenes' asset files
+# ---------------------------------------------------------------------------
+
+ASSET_MESH = "dragon_mcguire.obj"
+# the three skies and the sun direction of each stand-in
+ASSET_SKIES = {"ballroom_2k.hdr": (0.4, 0.6, 0.2),
+               "boiler_room_2k.hdr": (-0.5, 0.5, 0.3),
+               "epping_forest_02_2k.hdr": (0.2, 0.8, -0.4)}
+
+
+def obj_text(mesh):
+    """OBJ text of an icosphere: its shared vertices, their unit normals
+    (the vertices lie on a sphere about the origin) and v//vn faces, every
+    float written as the repr of its float64 value, so that any parser
+    rounds it to the same float32."""
+    verts, inv = np.unique(mesh.triangles.reshape(-1, 3), axis=0,
+                           return_inverse=True)
+    v64 = verts.astype(np.float64)
+    nrm = v64 / np.linalg.norm(v64, axis=1, keepdims=True)
+    faces = inv.reshape(-1, 3) + 1
+    return "\n".join(
+        [f"v {x!r} {y!r} {z!r}" for x, y, z in v64.tolist()]
+        + [f"vn {x!r} {y!r} {z!r}" for x, y, z in nrm.tolist()]
+        + [f"f {a}//{a} {b}//{b} {c}//{c}" for a, b, c in faces.tolist()]
+    ) + "\n"
+
+
+def write_synthetic_assets(data_dir, subdivisions, sky_h, sky_w):
+    """Write stand-ins for the built-in scenes' asset files into
+    ``data_dir``: the mesh as an icosphere of 20 * 4**subdivisions
+    triangles with vertex normals, the skies as procedural equirect HDRs of
+    sky_h x sky_w.  Returns the mesh's triangle count."""
+    from buas_pathtracer_tpu_torch.utils.image import (procedural_sky_hdr,
+                                                       write_hdr)
+    from buas_pathtracer_tpu_torch.utils.procgen import icosphere
+    os.makedirs(data_dir, exist_ok=True)
+    mesh = icosphere(subdivisions=subdivisions)
+    with open(os.path.join(data_dir, ASSET_MESH), "w") as f:
+        f.write(obj_text(mesh))
+    for name, sun in ASSET_SKIES.items():
+        write_hdr(os.path.join(data_dir, name),
+                  procedural_sky_hdr(sky_h, sky_w, sun_dir=sun))
+    return mesh.triangle_count
 
 
 # ---------------------------------------------------------------------------
@@ -1664,6 +1720,501 @@ def run_blue_noise(cells, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# the session layer: built-in scenes, progressive rendering, CLI, viewer
+# ---------------------------------------------------------------------------
+
+# the synthetic assets on the card: the mesh at the stress scene's mesh
+# size (327,680 triangles), the skies at the real files' 2048x1024
+CARD_ASSET_SUBDIVISIONS = 7
+CARD_ASSET_SKY = (1024, 2048)
+# the frames of [26] and [27] (16:9, the 64x36 gate's aspect) and the
+# viewer's in [29]
+SESSION_SIZE = (1920, 1080)
+VIEWER_SIZE = (1024, 576)
+SESSION_FRAMES = 3
+# the scenes whose recorded waves are held to the plain walk in [26]
+WAVE_SCENES = ("Week 7", "Nested Dielectrics", "Dragon")
+# the scenes profiled for device time in [26] (scene, asset mode)
+PROFILED = (("Week 7", "no assets"), ("Dragon", "synthetic assets"))
+
+
+def launch_key(name):
+    """The launch counter of a kernel record's instantiation."""
+    if name.startswith("post_rgba8"):
+        return "post_rgba8"
+    if name.startswith("tristream"):
+        return "tristream_closest"
+    mode = "occlusion" if "occlusion" in name else "closest"
+    return ("split_" if name.startswith("split") else "") + mode
+
+
+@contextlib.contextmanager
+def plain_walks():
+    """Both traversal walks replaced by their plain versions."""
+    from buas_pathtracer_tpu_torch.ops import packet
+    real = packet.wide_traverse, packet.split_traverse
+    packet.wide_traverse = packet.wide_traverse_plain
+    packet.split_traverse = packet.split_traverse_plain
+    try:
+        yield
+    finally:
+        packet.wide_traverse, packet.split_traverse = real
+
+
+def small_frames_equal(r, sc, dev):
+    """A 64x36 frame (the 1080p frame's aspect, so the same camera) of the
+    renderer's packed scene with the scene's own settings, through the
+    kernels and through the plain versions: bit-identical, as [12]."""
+    import torch
+    from buas_pathtracer_tpu_torch.runtime import film
+    from buas_pathtracer_tpu_torch.runtime.render import render_frame
+
+    def img():
+        acc = film.new_accumulation_buffer(36, 64, dev)
+        acc, _ = render_frame(r.ps, sc.settings, sc.camera, acc, 0, h=36,
+                              w=64, n_lights=sc.n_lights,
+                              filter_name=sc.filter_name,
+                              has_medium=sc.has_medium, device=dev)
+        return film.resolve(acc)
+
+    img_k = img()
+    with plain_walks():
+        img_p = img()
+    same = bool(torch.equal(img_k, img_p))
+    return same and bool(img_k.isfinite().all()), same
+
+
+def hold_waves(r, tag, card):
+    """The bounce-1 and shadow-0 waves of one progressive frame, recorded,
+    held to the plain walk (outputs and stats) and timed."""
+    from buas_pathtracer_tpu_torch.ops import packet
+    split = r.ps.v4_res is not None
+    walk = "split_traverse" if split else "wide_traverse"
+    table = ((r.ps.v4_res, r.ps.v4_leaf, r.ps.wide_depth) if split
+             else (r.ps.wide_rows, r.ps.wide_depth))
+    waves = record_waves(packet, walk, r.render_one_frame)
+    out = {}
+    for wave, k in (("bounce", "K4" if split else "K2"),
+                    ("shadow", "K4" if split else "K2")):
+        if wave not in waves:
+            raise AssertionError(f"{tag}: no {wave} wave was recorded")
+        o, d, t0_, ign, occ = waves[wave]
+        args = (*table, o, d, t0_, ign, occ)
+        kernel = getattr(packet, walk)
+        compare_hits(kernel(*args), getattr(packet, walk + "_plain")(*args),
+                     f"{tag} {wave} wave ({k}, {walk})")
+        ms = cuda_ms(lambda: kernel(*args), KERNEL_REPS)
+        n, live = int(t0_.shape[0]), int((t0_ >= 0).sum())
+        log(f"{tag} {walk} {wave} wave: {n} rays ({live} live), kernel "
+            f"{ms:.4f} ms ({card})")
+        out[wave] = dict(k=k, walk=walk, rays=n, live=live, ms=ms)
+    return out
+
+
+def scene_run(name, mode, dev, card):
+    """Phase 26 for one scene in one asset mode: pack through
+    ``ProgressiveRenderer(device=None)``, the first frame and 3 more
+    progressive frames at SESSION_SIZE with the scene's own settings, the
+    display image, the 64x36 kernels = plain gate, and for the scenes of
+    WAVE_SCENES / PROFILED the recorded waves and a profiled frame."""
+    import torch
+    from buas_pathtracer_tpu_torch.models.scenes import load_scene
+    from buas_pathtracer_tpu_torch.runtime import film
+    from buas_pathtracer_tpu_torch.runtime.progressive import \
+        ProgressiveRenderer
+    W, H = SESSION_SIZE
+    tag = f"[26] {name} ({mode}):"
+    t0 = time.perf_counter()
+    sc = load_scene(name, W, H)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = ProgressiveRenderer(sc, W, H)  # device=None: the card
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    ps = r.ps
+    split = ps.v4_res is not None
+    tables = ((ps.v4_res, ps.v4_leaf) if split else (ps.wide_rows,))
+    mb = sum(t.numel() * 4 for t in tables) / 1e6
+    tris = sum(m.triangle_count for m in sc.meshes)
+    if ps.wide_rows.device.type != "cuda":
+        raise AssertionError(f"{tag} packed on {ps.wide_rows.device}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    r.render_one_frame()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(SESSION_FRAMES):
+        t0 = time.perf_counter()
+        r.render_one_frame()  # reads its stats: ends synchronised
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rays = float(r.last_stats[0])
+    img = r.display_rgba8()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    hdr = film.resolve(r.accum)
+    finite = bool(hdr.isfinite().all())
+    frame_ms = float(np.median(times))
+    frames = 1 + SESSION_FRAMES
+    walk = "split_closest" if split else "closest"
+    other = "closest" if split else "split_closest"
+    per_frame = {k: v / frames for k, v in launches.items()
+                 if k != "post_rgba8"}
+    small_ok, small_same = small_frames_equal(r, sc, dev)
+    log(f"{tag} {sc.settings.integrator}, {sc.settings.max_bounce_count} "
+        f"bounces, {sc.filter_name}, env {sc.env_map is not None}, "
+        f"{len(sc.prims)} prims, {len(sc.planes)} planes, {tris} triangles; "
+        f"built in {build_s:.2f} s, packed in {pack_s:.2f} s: rows "
+        f"{ps.wide_rows.shape[0]}, depth {ps.wide_depth}, "
+        f"{'split' if split else 'resident'} {mb:.2f} MB ({card})")
+    log(f"{tag} first frame {first_ms:.3f} ms, frame_ms {frame_ms:.3f} "
+        f"(median of {SESSION_FRAMES}: "
+        f"{', '.join(f'{t:.3f}' for t in times)}), rays {rays / 1e6:.4f} M, "
+        f"Mrays/s {rays / frame_ms / 1e3:.3f}; launches over {frames} frames "
+        f"+ display {launches}; image {img.shape} {img.dtype}, hdr finite "
+        f"{finite}, mean hdr {float(hdr.mean()):.4f}; 64x36 kernels vs "
+        f"plain identical {small_same} ({card})")
+    if not (launches[walk] > 0 and launches[other] == 0
+            and launches["post_rgba8"] == 1):
+        raise AssertionError(f"{tag} the path's kernels did not run as "
+                             f"expected: {launches}")
+    if not finite or img.shape != (H, W, 4) or not small_ok:
+        raise AssertionError(f"{tag} frame not finite / misshaped, or the "
+                             "64x36 kernels and plain versions differ")
+    rec = dict(scene=name, assets=mode, integrator=sc.settings.integrator,
+               bounces=sc.settings.max_bounce_count, prims=len(sc.prims),
+               triangles=tris, env=sc.env_map is not None, build_s=build_s,
+               pack_s=pack_s, rows=int(ps.wide_rows.shape[0]), mb=mb,
+               split=split, first_ms=first_ms, frame_ms=frame_ms,
+               frames_ms=times, rays=rays, mrays_s=rays / frame_ms / 1e3,
+               launches=launches, launches_per_frame=per_frame)
+    if (name, mode) in PROFILED:
+        prof = device_profile(r.render_one_frame)
+        if prof is None:
+            log(f"{tag} profiler: no device time recorded (not measured)")
+        else:
+            dev_ms, n, walk_ms = prof
+            log(f"{tag} profiled frame: device time {dev_ms:.3f} ms in {n} "
+                f"launches (walks {walk_ms:.3f} ms); against frame_ms "
+                f"{frame_ms:.3f}: busy {dev_ms / frame_ms * 100:.2f}% "
+                f"({card})")
+            rec.update(device_ms=dev_ms, device_launches=n, walk_ms=walk_ms,
+                       busy=dev_ms / frame_ms)
+    if name in WAVE_SCENES and (name != "Dragon"
+                                or mode == "synthetic assets"):
+        rec["waves"] = hold_waves(r, tag, card)
+    return rec
+
+
+def run_builtin_scenes(dev, card, tmp):
+    """Phase 26: the 12 built-in scenes through ``load_scene`` and
+    ``ProgressiveRenderer(device=None)`` at 1920x1080, without their asset
+    files and with synthetic ones in a temporary ``DATA_DIR``.  Returns the
+    per-scene records and the launch counts summed over the scene runs."""
+    from buas_pathtracer_tpu_torch.models import scenes
+    none_dir = os.path.join(tmp, "no_assets")
+    asset_dir = os.path.join(tmp, "synthetic_assets")
+    t0 = time.perf_counter()
+    n_tri = write_synthetic_assets(asset_dir, CARD_ASSET_SUBDIVISIONS,
+                                   *CARD_ASSET_SKY)
+    log(f"[26] synthetic assets written in {time.perf_counter() - t0:.2f} s: "
+        f"{ASSET_MESH} {n_tri} triangles with vertex normals, "
+        f"{len(ASSET_SKIES)} skies {CARD_ASSET_SKY[1]}x{CARD_ASSET_SKY[0]}")
+    saved = scenes.DATA_DIR
+    records, totals = [], {}
+    try:
+        for mode, data in (("no assets", none_dir),
+                           ("synthetic assets", asset_dir)):
+            scenes.DATA_DIR = data
+            for desc in scenes.SCENES:
+                rec = scene_run(desc.name, mode, dev, card)
+                records.append(rec)
+                for k, v in rec["launches"].items():
+                    totals[k] = totals.get(k, 0) + v
+    finally:
+        scenes.DATA_DIR = saved
+    if not all(totals[k] for k in ("closest", "occlusion", "post_rgba8")):
+        raise AssertionError(f"[26] a kernel of the scenes' path never ran: "
+                             f"{totals}")
+    log(f"[26] launches over the {len(records)} scene runs: {totals}")
+    return records, totals
+
+
+def run_progressive(dev, card, tmp):
+    """Phase 27: progressive rendering and checkpoints at 1920x1080 on
+    Cornell Box: take_picture(16, checkpoint_every=4) stopped after 8 spp
+    and resumed in a fresh renderer equals an uninterrupted 16 spp render
+    bit for bit (accumulation and PNG); a settings change between passes
+    aborts the frame; split passes equal the fused render_frame."""
+    from dataclasses import replace
+
+    import torch
+    from buas_pathtracer_tpu_torch.models.scenes import load_scene
+    from buas_pathtracer_tpu_torch.runtime import checkpoint, film
+    from buas_pathtracer_tpu_torch.runtime import progressive as prog
+    from buas_pathtracer_tpu_torch.runtime.render import render_frame
+    (W, H), name = SESSION_SIZE, "Cornell Box"
+    ck = os.path.join(tmp, "cornell.ckpt.npz")
+    paths = [os.path.join(tmp, f"cornell_{k}.png") for k in "abc"]
+
+    class Stop(Exception):
+        pass
+
+    def stop_after_8(done, total):
+        if done > 8:
+            raise Stop
+
+    r1 = prog.ProgressiveRenderer(load_scene(name, W, H), W, H)
+    try:
+        r1.take_picture(16, paths[0], progress=stop_after_8,
+                        checkpoint_every=4, checkpoint_path=ck)
+        raise AssertionError("[27] take_picture was not stopped")
+    except Stop:
+        pass
+    saved_spp = checkpoint.load_checkpoint(ck)[1]
+    r2 = prog.ProgressiveRenderer(load_scene(name, W, H), W, H)
+    resumed_s = r2.take_picture(16, paths[1], checkpoint_every=4,
+                                checkpoint_path=ck)
+    r3 = prog.ProgressiveRenderer(load_scene(name, W, H), W, H)
+    straight_s = r3.take_picture(16, paths[2])
+    same_accum = bool(torch.equal(r2.accum, r3.accum))
+    with open(paths[1], "rb") as f1, open(paths[2], "rb") as f2:
+        same_png = f1.read() == f2.read()
+    log(f"[27] {name} {W}x{H} take_picture(16, checkpoint_every=4): stopped "
+        f"at 9 spp with the checkpoint at {saved_spp} spp; resumed to 16 in "
+        f"{resumed_s:.3f} s; uninterrupted 16 spp in {straight_s:.3f} s "
+        f"({straight_s / 16 * 1e3:.3f} ms a spp); accumulation identical "
+        f"{same_accum}, PNG identical {same_png} ({card})")
+    if saved_spp != 8 or r2.frame_count != 16 or not (same_accum
+                                                       and same_png):
+        raise AssertionError("[27] the resumed render differs from the "
+                             "uninterrupted one")
+
+    sc4 = load_scene(name, W, H)
+    sc4.settings = replace(sc4.settings, samples_per_pixel=4)
+    r4 = prog.ProgressiveRenderer(sc4, W, H)
+    passes = []
+    real_pass = prog.ProgressiveRenderer._render_pass
+
+    def spy(self, settings):
+        passes.append(int(settings.samples_per_pixel))
+        if len(passes) == 2:  # the "UI thread" edits mid-frame
+            self.new_settings = replace(self.new_settings,
+                                        max_bounce_count=6)
+        return real_pass(self, settings)
+
+    prog.ProgressiveRenderer._render_pass = spy
+    try:
+        r4.render_one_frame()
+    finally:
+        prog.ProgressiveRenderer._render_pass = real_pass
+    aborted = (passes == [1, 1] and r4.frame_count == 2)
+    r4.render_one_frame()
+    committed = (r4.settings.max_bounce_count == 6 and r4.frame_count == 4)
+    log(f"[27] settings change after pass 2 of 4: passes run {passes}, "
+        f"frame aborted at {2 if aborted else '?'} spp {aborted}; next frame "
+        f"committed and reset {committed}")
+    if not (aborted and committed):
+        raise AssertionError("[27] the per-pass cancel failed")
+
+    r5 = prog.ProgressiveRenderer(sc4, W, H)
+    r5.render_one_frame()
+    acc = film.new_accumulation_buffer(H, W, dev)
+    acc, stats = render_frame(r5.ps, sc4.settings, sc4.camera, acc, 0, h=H,
+                              w=W, n_lights=sc4.n_lights,
+                              filter_name=sc4.filter_name,
+                              has_medium=sc4.has_medium)
+    split_same = bool(torch.equal(r5.accum, acc))
+    log(f"[27] 4 passes of 1 spp vs the fused 4 spp render_frame: "
+        f"identical {split_same}, rays {r5.last_stats[0]:.0f} vs "
+        f"{float(stats[0]):.0f}")
+    if not split_same or r5.last_stats[0] != float(stats[0]):
+        raise AssertionError("[27] split passes differ from the fused frame")
+    return dict(resumed_s=resumed_s, straight_16spp_s=straight_s,
+                checkpoint_spp=saved_spp)
+
+
+def run_cli_phase(dev, card, tmp):
+    """Phase 28: the port's CLI in a subprocess at its defaults (Nested
+    Dielectrics, 1024x576, 4 spp) on the card; its PNG equals, byte for
+    byte, the in-process render of the same scene."""
+    from buas_pathtracer_tpu_torch.models import scenes
+    from buas_pathtracer_tpu_torch.runtime.progressive import \
+        ProgressiveRenderer
+    none_dir = os.path.join(tmp, "no_assets")
+    out = os.path.join(tmp, "cli.png")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "buas_pathtracer_tpu_torch.cli", "--out", out],
+        cwd=HERE, env=dict(os.environ, BUAS_TPU_DATA=none_dir),
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    last = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
+    m = re.fullmatch(r"Took 1024x576 4spp image in ([0-9.]+) seconds -> "
+                     + re.escape(out), last)
+    log(f"[28] CLI at its defaults: exit {res.returncode} in {wall:.2f} s "
+        f"(process included); its line: {last!r}")
+    if res.returncode != 0 or m is None:
+        raise AssertionError(f"[28] the CLI failed: {res.stderr[-2000:]}")
+    saved = scenes.DATA_DIR
+    scenes.DATA_DIR = none_dir
+    try:
+        sc = scenes.load_scene("Nested Dielectrics", 1024, 576)
+    finally:
+        scenes.DATA_DIR = saved
+    in_process = os.path.join(tmp, "in_process.png")
+    in_s = ProgressiveRenderer(sc, 1024, 576).take_picture(4, in_process)
+    with open(out, "rb") as f1, open(in_process, "rb") as f2:
+        same = f1.read() == f2.read()
+    log(f"[28] CLI PNG equal to the in-process render's (in {in_s:.3f} s): "
+        f"{same} ({card})")
+    if not same:
+        raise AssertionError("[28] the CLI's PNG differs from the in-process "
+                             "render")
+    return dict(cli_wall_s=wall, cli_render_s=float(m.group(1)),
+                in_process_s=in_s)
+
+
+def png_complete(path):
+    """True once ``path`` holds a whole PNG (signature to IEND chunk): a
+    file the render thread is still writing reads as incomplete."""
+    if not os.path.exists(path):
+        return False
+    with open(path, "rb") as f:
+        data = f.read()
+    return data[:8] == b"\x89PNG\r\n\x1a\n" and data[-8:-4] == b"IEND"
+
+
+def run_viewer_phase(dev, card, tmp):
+    """Phase 29: the viewer in-process on an ephemeral port, 1024x576,
+    Cornell Box on the card: the page, state, frame and sampler images; the
+    keys, look, walk (the one-ray floor query) and focus controls, the
+    picked focus distance equal to the plain walk's t for that ray; a
+    setting commit and take picture.  Its frame_ms and the PNG encode's
+    share of it.  (Both threads launch kernels: no launch counts here.)"""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+    from buas_pathtracer_tpu_torch.app.viewer import ViewerState, make_handler
+    from buas_pathtracer_tpu_torch.models import scenes
+    from buas_pathtracer_tpu_torch.ops import packet
+    from buas_pathtracer_tpu_torch.ops.traverse import BIG_T, _intersect_planes
+    W, H = VIEWER_SIZE
+    saved = scenes.DATA_DIR
+    scenes.DATA_DIR = os.path.join(tmp, "no_assets")
+    try:
+        state = ViewerState("Cornell Box", W, H)  # device=None: the card
+    finally:
+        scenes.DATA_DIR = saved
+    render = threading.Thread(target=state.render_loop, daemon=True)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    serve = threading.Thread(target=server.serve_forever, daemon=True)
+    render.start()
+    serve.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=120) as r:
+            return r.status, r.read()
+
+    def post(msg):
+        req = urllib.request.Request(base + "/control", method="POST",
+                                     data=json.dumps(msg).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status
+
+    def wait_for(pred, what, timeout=120.0):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            if pred():
+                return
+            time.sleep(0.05)
+        raise AssertionError(f"[29] timed out waiting for {what}")
+
+    def state_json():
+        return json.loads(get("/state")[1])
+
+    try:
+        code, page = get("/")
+        if code != 200 or b"buas-pathtracer-tpu" not in page:
+            raise AssertionError("[29] the page did not load")
+        wait_for(lambda: state_json()["spp"] >= 2, "two progressive frames")
+        code, png = get("/frame.png")
+        if code != 200 or png[:8] != b"\x89PNG\r\n\x1a\n" or len(png) < 1000:
+            raise AssertionError("[29] /frame.png is not a rendered PNG")
+        for kind in ("scatter", "hist", "noise"):
+            code, body = get(f"/sampler.png?kind={kind}&strategy=2")
+            if code != 200 or body[:8] != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"[29] /sampler.png {kind} failed")
+        samples = []
+        for _ in range(12):  # the render loop's own frame and encode times
+            s = state_json()
+            samples.append((s["frame_ms"], s["encode_ms"], s["spp"]))
+            time.sleep(0.25)
+        frame_ms = float(np.median([a for a, _, _ in samples]))
+        encode_ms = float(np.median([b for _, b, _ in samples]))
+
+        cam = state.renderer.new_camera
+        p0 = (cam.p.x, cam.p.z)
+        post({"type": "keys", "keys": ["w"], "fast": True})
+        wait_for(lambda: (state.renderer.new_camera.p.x,
+                          state.renderer.new_camera.p.z) != p0, "a move")
+        post({"type": "keys", "keys": [], "fast": False})
+        aim0 = state.renderer.new_camera.z.x
+        post({"type": "look", "dx": 60, "dy": 10})
+        if state.renderer.new_camera.z.x == aim0:
+            raise AssertionError("[29] look did not turn the camera")
+        post({"type": "walk"})
+        wait_for(lambda: abs(state.renderer.new_camera.p.y - 1.7) < 1e-3,
+                 "walk mode to stand the eye 1.7 above the floor")
+        post({"type": "walk"})
+        picks = []
+        for px, py in ((W // 2, H // 2), (W // 3, 2 * H // 3)):
+            with state.lock:  # the camera as the pick will see it
+                rays = state.pick_ray(px, py)
+            o, d = rays.o, rays.d
+            t_pl, _ = _intersect_planes(state.renderer.ps, o, d,
+                                        torch.full((1,), BIG_T, device=dev))
+            ref = packet.wide_traverse_plain(
+                state.renderer.ps.wide_rows, state.renderer.ps.wide_depth,
+                o, d, t_pl, torch.full((1,), -1, dtype=torch.int32,
+                                       device=dev), False)
+            post({"type": "focus", "x": px, "y": py})
+            got = state.renderer.new_camera.focus_distance
+            picks.append((px, py, got, float(ref[0][0]), int(ref[1][0])))
+            if got != float(ref[0][0]):
+                raise AssertionError(f"[29] focus pick at ({px}, {py}): "
+                                     f"{got} != the plain walk's t "
+                                     f"{float(ref[0][0])}")
+        post({"type": "setting", "field": "max_bounce_count", "value": 6})
+        wait_for(lambda: state.renderer.settings.max_bounce_count == 6
+                 and state.renderer.frame_count >= 1, "the setting commit")
+        pic = os.path.join(tmp, "viewer_picture.png")
+        post({"type": "picture", "spp": 4, "path": pic})
+        wait_for(lambda: png_complete(pic), "take picture's PNG")
+        s = state_json()
+    finally:
+        state.running = False
+        render.join(timeout=300)
+        server.shutdown()
+        server.server_close()
+    if render.is_alive():
+        raise AssertionError("[29] the render thread did not stop")
+    log(f"[29] viewer {W}x{H} Cornell Box: endpoints answered; frame_ms "
+        f"{frame_ms:.1f} (median of the render loop's last frame, sampled "
+        f"12 times), PNG encode {encode_ms:.1f} ms = "
+        f"{encode_ms / frame_ms * 100:.1f}% of it; focus picks (x, y, "
+        f"focus_distance, plain walk t, prim) {picks}; after the setting "
+        f"commit {s['spp']} spp, {s['title']} ({card})")
+    return dict(viewer_frame_ms=frame_ms, viewer_encode_ms=encode_ms,
+                viewer_encode_share=encode_ms / frame_ms, focus_picks=picks)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2044,13 +2595,25 @@ def main(argv):
     others = run_integrators(cells, dev, card)
     bn_ms = run_blue_noise(cells, dev, card)
 
+    # ---- 26-29. the session layer: the 12 built-in scenes, progressive
+    # rendering with checkpoints, the CLI and the viewer ----
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_records, scene_launches = run_builtin_scenes(dev, card, tmp)
+        session = dict(scenes=scene_records, scene_launches=scene_launches,
+                       **run_progressive(dev, card, tmp),
+                       **run_cli_phase(dev, card, tmp),
+                       **run_viewer_phase(dev, card, tmp))
+    for r in records:  # the scene runs' launches beside the bench path's
+        r["launches_scenes"] = scene_launches.get(launch_key(r["name"]), 0)
+
     # ---- 25. records ----
     records.sort(key=lambda r: r["k"])
     log(f"[25] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records, "frame_ms": frame_s * 1e3,
                       "rays_per_frame_M": rays / 1e6, **stress, **hero,
                       "staged_turns": staged, "integrators_ms": others,
-                      "blue_noise_frame_ms": bn_ms, "card": card}),
+                      "blue_noise_frame_ms": bn_ms, "session": session,
+                      "card": card}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
