@@ -69,12 +69,27 @@ class Vec3(NamedTuple):
     def shape(self):
         return self.x.shape
 
+    def astype(self, dt):
+        return Vec3(torch.as_tensor(self.x, dtype=dt),
+                    torch.as_tensor(self.y, dtype=dt),
+                    torch.as_tensor(self.z, dtype=dt))
+
+    def stack(self, axis: int = -1) -> torch.Tensor:
+        """To AoS ``(..., 3)`` (host IO and debugging, not hot paths)."""
+        return torch.stack([torch.as_tensor(self.x), torch.as_tensor(self.y),
+                            torch.as_tensor(self.z)], dim=axis)
+
 
 def v3(x: Scalar, y: Scalar = None, z: Scalar = None) -> Vec3:
     """``v3(s)`` splats like the reference's ``v3(f32)``."""
     if y is None:
         return Vec3(x, x, x)
     return Vec3(x, y, z)
+
+
+def from_stacked(a) -> Vec3:
+    """From an AoS ``(..., 3)`` tensor."""
+    return Vec3(a[..., 0], a[..., 1], a[..., 2])
 
 
 def full_like(v: Vec3, val: float) -> Vec3:
@@ -85,6 +100,11 @@ def full_like(v: Vec3, val: float) -> Vec3:
 def zeros(shape, device, dtype=torch.float32) -> Vec3:
     z = torch.zeros(shape, dtype=dtype, device=device)
     return Vec3(z, z.clone(), z.clone())
+
+
+def broadcast_to(v: Vec3, shape) -> Vec3:
+    return Vec3(*(torch.broadcast_to(torch.as_tensor(c), shape)
+                  for c in (v.x, v.y, v.z)))
 
 
 def dot(a: Vec3, b: Vec3):
@@ -99,6 +119,10 @@ def cross(a: Vec3, b: Vec3) -> Vec3:
 
 def length_sq(a: Vec3):
     return dot(a, a)
+
+
+def length(a: Vec3):
+    return torch.sqrt(dot(a, a))
 
 
 def normalize(a: Vec3) -> Vec3:
@@ -131,8 +155,26 @@ def lerp(a, b, t):
     return a + (b - a) * t
 
 
+def vmin(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(torch.minimum(a.x, b.x), torch.minimum(a.y, b.y),
+                torch.minimum(a.z, b.z))
+
+
+def vmax(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(torch.maximum(a.x, b.x), torch.maximum(a.y, b.y),
+                torch.maximum(a.z, b.z))
+
+
+def vabs(a: Vec3) -> Vec3:
+    return Vec3(torch.abs(a.x), torch.abs(a.y), torch.abs(a.z))
+
+
 def max3(a: Vec3):
     return torch.maximum(a.x, torch.maximum(a.y, a.z))
+
+
+def min3(a: Vec3):
+    return torch.minimum(a.x, torch.minimum(a.y, a.z))
 
 
 def where(mask, a: Vec3, b: Vec3) -> Vec3:
@@ -144,6 +186,10 @@ def where(mask, a: Vec3, b: Vec3) -> Vec3:
 def reflect(d: Vec3, n: Vec3) -> Vec3:
     """Mirror reflection of direction ``d`` about normal ``n``."""
     return d - n * (2.0 * dot(d, n))
+
+
+def saturate(x):
+    return torch.clamp(x, 0.0, 1.0)
 
 
 def exp(a: Vec3) -> Vec3:
@@ -240,6 +286,34 @@ def rotate_y(angle: float) -> Affine:
 def rotate_z(angle: float) -> Affine:
     c, s = math.cos(angle), math.sin(angle)
     return _rot_affine(np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float64))
+
+
+def transform_point(m, p: Vec3) -> Vec3:
+    """Apply a (3,4) affine row-matrix to points (w = 1)."""
+    return Vec3(m[0, 0] * p.x + m[0, 1] * p.y + m[0, 2] * p.z + m[0, 3],
+                m[1, 0] * p.x + m[1, 1] * p.y + m[1, 2] * p.z + m[1, 3],
+                m[2, 0] * p.x + m[2, 1] * p.y + m[2, 2] * p.z + m[2, 3])
+
+
+def transform_vector(m, v: Vec3) -> Vec3:
+    """Apply a (3,4) affine row-matrix to directions (w = 0)."""
+    return Vec3(m[0, 0] * v.x + m[0, 1] * v.y + m[0, 2] * v.z,
+                m[1, 0] * v.x + m[1, 1] * v.y + m[1, 2] * v.z,
+                m[2, 0] * v.x + m[2, 1] * v.y + m[2, 2] * v.z)
+
+
+def transform_normal(inv_m, n: Vec3) -> Vec3:
+    """Normals go by the inverse-transpose: given the INVERSE matrix, apply
+    its 3x3 transpose (reference my_math.h:948-963)."""
+    return Vec3(inv_m[0, 0] * n.x + inv_m[1, 0] * n.y + inv_m[2, 0] * n.z,
+                inv_m[0, 1] * n.x + inv_m[1, 1] * n.y + inv_m[2, 1] * n.z,
+                inv_m[0, 2] * n.x + inv_m[1, 2] * n.y + inv_m[2, 2] * n.z)
+
+
+def aabb_surface_area(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    d = np.maximum(hi - lo, 0.0)
+    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                  + d[..., 2] * d[..., 0])
 
 
 def transform_aabb(m: np.ndarray, lo: np.ndarray, hi: np.ndarray):

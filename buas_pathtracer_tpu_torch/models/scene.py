@@ -13,12 +13,15 @@ per-triangle normals, the sky, the environment map with its sampling tables
 (``v4_res``, ``v4_leaf``).  Every table the JAX package also packs is
 byte-equal to it (``tests/test_torch_scene.py``, ``test_torch_split.py``,
 ``test_torch_envmap.py``); the env alias indices are int64 here, value-equal
-to the JAX package's exact float values.  The JAX package's threaded-BVH
-fields and triangle soup are not part of the port.
+to the JAX package's exact float values.  The threaded skip-link BVH
+(the seven ``node_*`` fields) and the leaf-ordered triangle soup that the
+oracle walk (``ops/traverse.py``) reads are packed only on request:
+``pack(threaded=True)``, or ``BUAS_TRAVERSAL=threaded`` at pack time.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional
 
@@ -29,6 +32,7 @@ from ..core import vec
 from ..core.device import resolve_device
 from ..core.sampler import Strategy
 from ..core.vec import Affine, Vec3
+from ..ops import bvh as bvh_mod
 from . import materials as mat_mod
 from .camera import Camera, make_camera
 from .mesh import Mesh
@@ -146,6 +150,24 @@ class PackedScene(NamedTuple):
     v4_res: Optional[torch.Tensor] = None  # (Ri, 64) f32 resident rows
     v4_leaf: Optional[torch.Tensor] = None  # (L, 128) f32 merged leaf rows
 
+    # the threaded skip-link BVH (ops/bvh.flatten_world_bvh) and the global
+    # leaf-ordered triangle soup (object space) the oracle walk reads,
+    # present when packed with threaded=True; the JAX package's names
+    node_lo: Optional[Vec3] = None  # (N,) world boxes, padded by _Emitter.PAD
+    node_hi: Optional[Vec3] = None
+    node_miss: Optional[torch.Tensor] = None  # (N,) int32
+    node_kind: Optional[torch.Tensor] = None  # (N,) int32
+    node_first: Optional[torch.Tensor] = None  # (N,) int32
+    node_count: Optional[torch.Tensor] = None  # (N,) int32
+    node_inst: Optional[torch.Tensor] = None  # (N,) int32
+    tri_a: Optional[Vec3] = None  # (T,) vertices
+    tri_b: Optional[Vec3] = None
+    tri_c: Optional[Vec3] = None
+    tri_na: Optional[Vec3] = None  # per-vertex normals (zero if none)
+    tri_nb: Optional[Vec3] = None
+    tri_nc: Optional[Vec3] = None
+    tri_has_n: Optional[torch.Tensor] = None  # (T,) bool
+
     @property
     def n_lights(self) -> int:
         return int(self.light_prim.shape[0])
@@ -241,15 +263,80 @@ class Scene:
 
     # -- packing ------------------------------------------------------------
     def pack(self, device=None, bvh_method: str = "sah_binned",
-             split: Optional[bool] = None) -> PackedScene:
+             split: Optional[bool] = None,
+             threaded: Optional[bool] = None) -> PackedScene:
         """``split`` None: build the split tables when the unified table's
         bytes exceed ``packet.RESIDENT_TABLE_LIMIT_BYTES``; True / False
         forces the choice (a scene whose root is a triangle leaf or empty
-        never splits)."""
+        never splits).  ``threaded`` None: pack the threaded BVH and the
+        triangle soup when ``BUAS_TRAVERSAL=threaded``; True / False forces
+        the choice."""
         dev = resolve_device(device)
         arrays = self._pack_arrays(bvh_method)
         arrays.update(_split_tables(arrays["wide_rows"], split))
+        if threaded is None:
+            threaded = os.environ.get("BUAS_TRAVERSAL") == "threaded"
+        if threaded:
+            arrays.update(self._threaded_tables())
         return _to_device(arrays, dev)
+
+    def _threaded_tables(self) -> Dict:
+        """The threaded BVH and the triangle soup (JAX scene.py:337-358,
+        :423-431), after ``_pack_arrays`` built the mesh BVHs."""
+        tri_offsets, tri_v, tri_n, tri_has = [], [], [], []
+        base = 0
+        for mesh in self.meshes:
+            tri_offsets.append(base)
+            tri_v.append(np.asarray(mesh.triangles, np.float32))
+            tri_n.append(np.asarray(mesh.normals, np.float32)
+                         if mesh.has_normals else np.zeros_like(tri_v[-1]))
+            tri_has.append(np.full(mesh.triangle_count, mesh.has_normals,
+                                   bool))
+            base += mesh.triangle_count
+        if base == 0:
+            tri_v = tri_n = [np.zeros((1, 3, 3), np.float32)]
+            tri_has = [np.zeros(1, bool)]
+        tv, tn = np.concatenate(tri_v), np.concatenate(tri_n)
+        th = self._build_threaded(tri_offsets)
+        return dict(
+            node_lo=th.lo, node_hi=th.hi, node_miss=th.miss,
+            node_kind=th.kind.astype(np.int32), node_first=th.first,
+            node_count=th.count, node_inst=th.inst,
+            tri_a=tv[:, 0], tri_b=tv[:, 1], tri_c=tv[:, 2],
+            tri_na=tn[:, 0], tri_nb=tn[:, 1], tri_nc=tn[:, 2],
+            tri_has_n=np.concatenate(tri_has))
+
+    def _build_threaded(self, tri_offsets) -> bvh_mod.ThreadedBVH:
+        """The TLAS over the world boxes of the real primitives, grafted
+        with each mesh instance's subtree (JAX scene.py:511-545).  A mesh's
+        object box is its BVH root's."""
+        prims = self.prims or [dict(type=PRIM_NONE)]
+        real = [i for i, p in enumerate(prims) if p["type"] != PRIM_NONE]
+        if not real:
+            return bvh_mod._Emitter().finish()
+        item_lo = np.zeros((len(real), 3), np.float32)
+        item_hi = np.zeros((len(real), 3), np.float32)
+        pfwd = np.stack([p["fwd"].reshape(3, 4) for p in prims]
+                        ).astype(np.float32)
+        pmesh = np.array([p.get("mesh_id", -1) for p in prims], np.int32)
+        for j, i in enumerate(real):
+            p = prims[i]
+            if p["type"] == PRIM_SPHERE:
+                olo = np.full(3, -p["r"], np.float32)
+                ohi = np.full(3, p["r"], np.float32)
+            elif p["type"] == PRIM_BOX:
+                br = np.asarray(p["box_r"], np.float32)
+                olo, ohi = -br, br
+            elif p["type"] == PRIM_MESH:
+                b = self.meshes[pmesh[i]].bvh
+                olo, ohi = b.lo[0], b.hi[0]
+            else:
+                olo = ohi = np.zeros(3, np.float32)
+            item_lo[j], item_hi[j] = vec.transform_aabb(pfwd[i], olo, ohi)
+        tlas = bvh_mod.build_bvh(item_lo, item_hi, method="sah_binned")
+        return bvh_mod.flatten_world_bvh(
+            tlas, np.array(real, np.int32), item_lo, item_hi, pfwd, pmesh,
+            [m.bvh for m in self.meshes], tri_offsets)
 
     def _pack_arrays(self, bvh_method: str = "sah_binned") -> Dict:
         """The packed tables as numpy arrays (``pack`` moves them)."""
@@ -389,7 +476,8 @@ class Scene:
 # fields stored as Vec3: (X, 3) host arrays (or (3,) for the sky colours)
 _VEC3_FIELDS = ("mat_albedo", "mat_checker", "mat_emission", "mat_absorb",
                 "plane_n", "prim_box_r", "sky_bot", "sky_top",
-                "ambient_light")
+                "ambient_light", "node_lo", "node_hi", "tri_a", "tri_b",
+                "tri_c", "tri_na", "tri_nb", "tri_nc")
 _INDEX_FIELDS = ("plane_mat", "prim_type", "prim_mat", "light_prim",
                  "env_alias_idx")
 
@@ -436,8 +524,9 @@ def from_jax_arrays(arrays: Dict[str, np.ndarray], device) -> PackedScene:
     ``arrays`` maps the JAX ``PackedScene`` field names to numpy arrays, as
     ``{k: np.asarray(v) for k, v in jax_ps._asdict().items()}`` makes them:
     a Vec3 field arrives as a (3, ...) array, and ``wide_depth_arr`` carries
-    the tree depth as its length.  The optional split tables may be absent.
-    Fields the port does not use are ignored.
+    the tree depth as its length.  The optional split tables may be absent;
+    the threaded tables come across when present (the JAX package always
+    packs them).  Fields the port does not use are ignored.
     The tests run both packages on identical tables this way."""
     dev = resolve_device(device)
     conv = {}

@@ -1,15 +1,18 @@
-"""Native host builders: binned-SAH BVH build and wide-BVH collapse in C++,
-bound through ctypes.
+"""Native host code in C++, bound through ctypes: the binned-SAH BVH build,
+the threaded subtree flattener, the wide-BVH collapse, the OBJ parser and
+the Radiance HDR RLE decoder.
 
 Counterpart of ``buas_pathtracer_tpu/native/__init__.py``, with the port's
-own copies of ``bvh_builder.cpp`` and ``wide_collapse.cpp`` under ``src/``.
+own copies of ``bvh_builder.cpp``, ``obj_parser.cpp`` and
+``wide_collapse.cpp`` under ``src/``.
 The shared library is built with g++ at first use into ``_build/`` (listed
 in ``.gitignore``), keyed by a fingerprint of the sources, the host and the
 compiler, and written through a temporary file so concurrent test workers
 never load a half-written library.  The flags equal the JAX package's, so
 both packages build identical tables on one machine.  Without a toolchain
-(or with ``BUAS_NO_NATIVE=1``) the numpy builders in ``ops/`` take over; they
-give valid but different trees.
+(or with ``BUAS_NO_NATIVE=1``) the numpy builders in ``ops/`` and the
+Python parsers in ``utils/assets.py`` take over; the builders give valid
+but different trees.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src")
 _BUILD = os.path.join(_DIR, "_build")
-_SOURCES = ["bvh_builder.cpp", "wide_collapse.cpp"]
+_SOURCES = ["bvh_builder.cpp", "obj_parser.cpp", "wide_collapse.cpp"]
 _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
@@ -94,6 +97,7 @@ def _load():
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
         lib.bvh_build.restype = ctypes.c_void_p
         lib.bvh_build.argtypes = [f32p, f32p, ctypes.c_int32, ctypes.c_int32,
@@ -103,6 +107,25 @@ def _load():
                                   i8p, i32p]
         lib.bvh_release.restype = None
         lib.bvh_release.argtypes = [ctypes.c_void_p]
+        lib.bvh_flatten_subtree.restype = None
+        lib.bvh_flatten_subtree.argtypes = [
+            f32p, f32p, i32p, i32p, ctypes.c_int32, f32p, ctypes.c_float,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, f32p, f32p, i32p, i8p, i32p, i32p, i32p]
+        lib.obj_parse.restype = ctypes.c_void_p
+        lib.obj_parse.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                  ctypes.c_int32,
+                                  ctypes.POINTER(ctypes.c_int32),
+                                  ctypes.POINTER(ctypes.c_int32),
+                                  ctypes.POINTER(ctypes.c_int32)]
+        lib.obj_fetch.restype = None
+        lib.obj_fetch.argtypes = [ctypes.c_void_p, f32p, ctypes.c_void_p,
+                                  ctypes.c_void_p]
+        lib.obj_release.restype = None
+        lib.obj_release.argtypes = [ctypes.c_void_p]
+        lib.hdr_decode.restype = ctypes.c_int32
+        lib.hdr_decode.argtypes = [u8p, ctypes.c_int64, ctypes.c_int32,
+                                   ctypes.c_int32, u8p]
         lib.wide_collapse.restype = ctypes.c_void_p
         lib.wide_collapse.argtypes = [
             f32p, f32p, i32p, i32p, ctypes.c_int32, ctypes.c_int32,
@@ -145,6 +168,67 @@ def build_bvh_native(lo: np.ndarray, hi: np.ndarray, max_leaf_size: int):
     lib.bvh_release(h)
     from ..ops.bvh import BuildNodes
     return BuildNodes(out_lo, out_hi, left, count, axis, order)
+
+
+def flatten_subtree_native(bnodes, fwd: np.ndarray, pad: float,
+                           tri_base: int, inst: int, base: int,
+                           kind_internal: int, kind_leaf: int,
+                           out_lo, out_hi, out_miss, out_kind, out_first,
+                           out_count, out_inst) -> bool:
+    """Emit a threaded subtree into the preallocated arrays, node ``base``
+    first.  False without the native library."""
+    lib = _load()
+    if lib is None:
+        return False
+    lib.bvh_flatten_subtree(
+        np.ascontiguousarray(bnodes.lo, np.float32),
+        np.ascontiguousarray(bnodes.hi, np.float32),
+        np.ascontiguousarray(bnodes.left_first, np.int32),
+        np.ascontiguousarray(bnodes.count, np.int32),
+        int(bnodes.count.shape[0]),
+        np.ascontiguousarray(fwd, np.float32).reshape(-1),
+        float(pad), int(tri_base), int(inst), int(base),
+        int(kind_internal), int(kind_leaf),
+        out_lo, out_hi, out_miss, out_kind, out_first, out_count, out_inst)
+    return True
+
+
+def parse_obj_native(text: bytes, flip: bool):
+    """C++ OBJ parse.  Returns (tri, nrm or None, tex or None), None when
+    the text is rejected, or False without the native library."""
+    lib = _load()
+    if lib is None:
+        return False
+    n_tris = ctypes.c_int32(0)
+    has_n = ctypes.c_int32(0)
+    has_t = ctypes.c_int32(0)
+    h = lib.obj_parse(text, len(text), 1 if flip else 0,
+                      ctypes.byref(n_tris), ctypes.byref(has_n),
+                      ctypes.byref(has_t))
+    if not h:
+        return None
+    t = n_tris.value
+    tri = np.empty((t, 3, 3), np.float32)
+    nrm = np.empty((t, 3, 3), np.float32) if has_n.value else None
+    tex = np.empty((t, 3, 2), np.float32) if has_t.value else None
+    lib.obj_fetch(
+        h, tri,
+        nrm.ctypes.data_as(ctypes.c_void_p) if nrm is not None else None,
+        tex.ctypes.data_as(ctypes.c_void_p) if tex is not None else None)
+    lib.obj_release(h)
+    return tri, nrm, tex
+
+
+def hdr_decode_native(payload: bytes, w: int, h: int):
+    """C++ RLE decode -> (h, w, 4) uint8 RGBE; None on a decode error or
+    without the native library (``available()`` tells them apart)."""
+    lib = _load()
+    if lib is None:
+        return None
+    buf = np.frombuffer(payload, np.uint8)
+    out = np.zeros((h, w, 4), np.uint8)
+    rc = lib.hdr_decode(np.ascontiguousarray(buf), len(buf), w, h, out)
+    return out if rc == 0 else None
 
 
 def wide_collapse_native(world_lo, world_hi, left_first, count, root: int,

@@ -3,8 +3,8 @@
 // of buas_pathtracer_tpu/native/src/bvh_builder.cpp (apart from this
 // header), so the PyTorch port packs the same tables as the JAX package.
 // Native equivalent of the reference's C++ builder (Raytracer/bvh.cpp
-// :138-213 binned partition, :222-287 recursion).  The port binds only
-// bvh_build/bvh_fetch/bvh_release; the threaded flattener is not ported yet.
+// :138-213 binned partition, :222-287 recursion).  The threaded flattener
+// feeds ops/bvh.py's flatten_world_bvh.
 //
 // Exposed C ABI (ctypes): handle-based because node counts are not known up
 // front.  All arrays are row-major float32/int32 matching numpy defaults.

@@ -8,6 +8,7 @@ rules follow the reference:
   plane:    denom < -EPS, t in [EPS, t_cur)            (intersection.cpp:12-42)
   sphere:   object-space quadratic, near-else-far root (intersection.cpp:44-74)
   box:      iq slab method                             (intersection.cpp:76-105)
+  aabb:     boolean slab tests, centre or min/max form  (intersection.cpp:107-133)
   triangle: Moller-Trumbore, eps=1e-9                  (intersection.cpp:135-182)
 """
 
@@ -67,6 +68,31 @@ def box(ray_o: Vec3, ray_d: Vec3, box_r: Vec3, t_cur):
     t = torch.where(tn >= 0.0, tn, tf)
     hit = (tn < tf) & (t_cur > t) & (t >= EPSILON)
     return hit, torch.where(hit, t, t_cur)
+
+
+def aabb(ray_o: Vec3, inv_d: Vec3, box_p: Vec3, box_r: Vec3, far_clip):
+    """Bounding-volume test (boolean), centre / half-extent form."""
+    n = inv_d * (ray_o - box_p)
+    k = Vec3(torch.abs(inv_d.x), torch.abs(inv_d.y), torch.abs(inv_d.z)) * box_r
+    t1 = -n - k
+    t2 = -n + k
+    tn = torch.maximum(torch.maximum(t1.x, t1.y), t1.z)
+    tf = torch.minimum(torch.minimum(t2.x, t2.y), t2.z)
+    return (tn < tf) & (tf > 0.0) & (tn < far_clip)
+
+
+def aabb_minmax(ray_o: Vec3, inv_d: Vec3, lo: Vec3, hi: Vec3, far_clip):
+    """Bounding-volume test, min / max corner form (the threaded walk's
+    node test)."""
+    t1 = (lo - ray_o) * inv_d
+    t2 = (hi - ray_o) * inv_d
+    tn = torch.maximum(
+        torch.maximum(torch.minimum(t1.x, t2.x), torch.minimum(t1.y, t2.y)),
+        torch.minimum(t1.z, t2.z))
+    tf = torch.minimum(
+        torch.minimum(torch.maximum(t1.x, t2.x), torch.maximum(t1.y, t2.y)),
+        torch.maximum(t1.z, t2.z))
+    return (tn < tf) & (tf > 0.0) & (tn < far_clip)
 
 
 def triangle(ray_o: Vec3, ray_d: Vec3, a: Vec3, b: Vec3, c: Vec3, t_cur):

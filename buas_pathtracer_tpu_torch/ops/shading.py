@@ -70,6 +70,16 @@ def map_to_cosine_weighted_hemisphere(n: Vec3, u, v) -> Vec3:
     return oriented_around_normal(hemi, n)
 
 
+def random_in_cone(n: Vec3, angle, u, v) -> Vec3:
+    """integrators.cpp:77-90."""
+    cos_angle = torch.cos(torch.as_tensor(angle, dtype=torch.float32))
+    azimuth = TAU * u
+    y = cos_angle + (1.0 - cos_angle) * v
+    s = torch.sqrt(torch.clamp(1.0 - y * y, min=0.0))
+    hemi = Vec3(torch.cos(azimuth) * s, y, torch.sin(azimuth) * s)
+    return oriented_around_normal(hemi, n)
+
+
 def fresnel_dielectric(cos_theta_i, eta_i, eta_t, eta_i_over_eta_t):
     """Returns (reflectance, cos_theta_t); total internal reflection -> 1
     (integrators.cpp:235-263, PBRT 3ed recipe)."""

@@ -12,6 +12,11 @@ counterpart.  Planes are tested linearly first; normals are computed
 once from the winning hit (reference intersection.cpp:526-591).  The JAX
 package gathers per-ray rows through one-hot matmuls and MXU transposes to
 suit the TPU; here they are plain tensor indexing.
+
+Every scene query of the integrators and the viewer comes through these two
+functions, so they hold the ``BUAS_TRAVERSAL=threaded`` switch: it sends
+the query to the threaded oracle walk of ``ops/traverse.py`` instead, as
+the JAX package's ``ops/traverse.intersect_scene`` does.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 
 from ..core.vec import Vec3, noz, where as vwhere
 from ..models.scene import PRIM_SPHERE, PackedScene
-from . import dispatch
+from . import dispatch, traverse
 from .traverse import BIG_T, Hit, _intersect_planes
 
 
@@ -38,6 +43,9 @@ def _traverse(ps: PackedScene, o: Vec3, d: Vec3, t0, ignored_prim,
 def intersect_shadow_ray(ps: PackedScene, ray_o: Vec3, ray_d: Vec3, max_t,
                          ignored_prim):
     """Occlusion query (intersection.cpp:600-604). True if anything blocks."""
+    if traverse.use_threaded():
+        return traverse.intersect_shadow_ray_threaded(ps, ray_o, ray_d,
+                                                      max_t, ignored_prim)
     t_pl, plane_idx = _intersect_planes(ps, ray_o, ray_d, max_t)
     _, prim, *_ = _traverse(ps, ray_o, ray_d, t_pl, ignored_prim,
                             occlusion=True)
@@ -47,6 +55,9 @@ def intersect_shadow_ray(ps: PackedScene, ray_o: Vec3, ray_d: Vec3, max_t,
 def intersect_scene(ps: PackedScene, ray_o: Vec3, ray_d: Vec3,
                     max_t=None, ignored_prim=None) -> Hit:
     """Full closest-hit query + deferred normal (intersection.cpp:606-610)."""
+    if traverse.use_threaded():
+        return traverse.intersect_scene_threaded(ps, ray_o, ray_d, max_t,
+                                                 ignored_prim)
     t0 = torch.full_like(ray_o.x, BIG_T) if max_t is None else max_t
     if ignored_prim is None:
         ignored_prim = torch.full_like(t0, -1, dtype=torch.int64)

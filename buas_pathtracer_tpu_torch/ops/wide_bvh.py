@@ -36,6 +36,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..core.vec import aabb_surface_area as _sa
 from . import bvh as bvh_mod
 
 # The port builds the 8-wide layout only (the JAX package's default; its
@@ -259,12 +260,6 @@ class _Inst:
         # leaf-merge support: subtrees whose total fits one row terminate
         # as ONE full leaf (python fallback of the native collapse policy)
         self.sub_first, self.sub_count = _subtree_ranges(bnodes)
-
-
-def _sa(lo, hi):
-    d = np.maximum(hi - lo, 0.0)
-    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
-                  + d[..., 2] * d[..., 0])
 
 
 def build_wide_scene(

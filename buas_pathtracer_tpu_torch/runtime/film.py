@@ -33,12 +33,30 @@ def splat_pass(color: Vec3, jitter_x, jitter_y,
     if filt.f is None:  # Box: sample -> own pixel, weight 1
         return sample
     r = int(filt.radius)
-    h, w = color.x.shape
-    # zero pad both axes: out-of-frame neighbours contribute 0
-    sp = F.pad(sample, (0, 0, r, r, r, r))
-    jx = F.pad(jitter_x, (r, r, r, r))
-    jy = F.pad(jitter_y, (r, r, r, r))
-    out = torch.zeros((h, w, 4), dtype=torch.float32, device=sample.device)
+    # zero pad: out-of-frame neighbours contribute 0
+    return splat_pass_prepadded(F.pad(sample, (0, 0, 0, 0, r, r)),
+                                F.pad(jitter_x, (0, 0, r, r)),
+                                F.pad(jitter_y, (0, 0, r, r)), filt)
+
+
+def splat_pass_prepadded(sample_ext, jx_ext, jy_ext,
+                         filt: FilterOption) -> torch.Tensor:
+    """The splat over a vertically pre-padded block.
+
+    ``sample_ext`` is (H + 2r, W, 4): H owned rows and r context rows above
+    and below, zeros at the frame edge or a neighbour rank's samples
+    (``parallel/mesh.py`` exchanges them).  The arithmetic is
+    ``splat_pass``'s, so equal context rows give a bit-equal block."""
+    if filt.f is None:
+        return sample_ext
+    r = int(filt.radius)
+    h = int(sample_ext.shape[0]) - 2 * r
+    w = int(sample_ext.shape[1])
+    sp = F.pad(sample_ext, (0, 0, r, r))
+    jx = F.pad(jx_ext, (r, r))
+    jy = F.pad(jy_ext, (r, r))
+    out = torch.zeros((h, w, 4), dtype=torch.float32,
+                      device=sample_ext.device)
     for dy in range(-r, r + 1):
         win = sp[r + dy:r + dy + h]
         wjx = jx[r + dy:r + dy + h]

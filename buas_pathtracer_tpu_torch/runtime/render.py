@@ -78,6 +78,48 @@ def _untiled(flat, h, w):
             .permute(0, 2, 1, 3).reshape(h, w))
 
 
+def pixel_rows(row0: int, rows: int, w: int, dev):
+    """Tiled pixel coordinates (px, py) of the frame rows [row0, row0 +
+    rows), all ``w`` columns."""
+    py_, px_ = torch.meshgrid(torch.arange(rows, device=dev),
+                              torch.arange(w, device=dev), indexing="ij")
+    return _tiled(px_), _tiled(py_) + row0
+
+
+def sample_pass(ps: PackedScene, settings: SceneSettings, cam: Camera,
+                px: torch.Tensor, py: torch.Tensor, sample_index: int, *,
+                h: int, w: int, rows: int, n_lights: int, has_medium: bool):
+    """One sample for every pixel of ``pixel_rows``' (px, py), ``rows`` rows
+    of a frame h x w.  Returns the (rows, w) colour image (Vec3), the
+    jitters jx, jy (rows, w) and stats (3,)."""
+    integrator = find_integrator(settings.integrator)
+    strategy = int(settings.sampling_strategy)
+    sampler = smp.make_sampler(px, py, sample_index, strategy=strategy)
+    sampler, aa_u, aa_v = smp.sample_2d(sampler, strategy,
+                                        smp.SampleDimension.AA, 0)
+    sampler, dof_u, dof_v = smp.sample_2d(sampler, strategy,
+                                          smp.SampleDimension.DOF, 0)
+    rays = generate_rays(
+        cam, px, py, w, h, aa_u, aa_v, dof_u, dof_v,
+        settings.lens_distortion, settings.f_factor,
+        settings.diaphragm_edges, settings.phi_shutter_max,
+        settings.vignette_strength)
+    if integrator is wht.whitted:
+        color, _, stats = integrator(ps, settings, sampler, rays.o, rays.d,
+                                     n_lights=n_lights,
+                                     has_medium=has_medium)
+    elif integrator is adv.advanced:
+        color, _, stats = integrator(ps, settings, sampler, rays.o, rays.d,
+                                     n_lights=n_lights)
+    else:
+        color, _, stats = integrator(ps, settings, sampler, rays.o, rays.d)
+    color = color * rays.vignette
+    color_img = Vec3(_untiled(color.x, rows, w), _untiled(color.y, rows, w),
+                     _untiled(color.z, rows, w))
+    return (color_img, _untiled(aa_u - 0.5, rows, w),
+            _untiled(aa_v - 0.5, rows, w), stats)
+
+
 def render_frame(ps: PackedScene, settings: SceneSettings, cam: Camera,
                  accum: torch.Tensor, frame_index: int, *, h: int, w: int,
                  n_lights: int, filter_name: str = "Mitchell Netravali",
@@ -93,46 +135,16 @@ def render_frame(ps: PackedScene, settings: SceneSettings, cam: Camera,
     check_on(dev, ps.wide_rows, "scene")
     check_on(dev, accum, "accum")
     dev = accum.device
-    integrator = find_integrator(settings.integrator)
     filt = find_filter(filter_name)
-    strategy = int(settings.sampling_strategy)
     cam = camera_on(cam, dev)
-
-    py_, px_ = torch.meshgrid(torch.arange(h, device=dev),
-                              torch.arange(w, device=dev), indexing="ij")
-    px = _tiled(px_)
-    py = _tiled(py_)
+    px, py = pixel_rows(0, h, w, dev)
 
     stats = torch.zeros(3, dtype=torch.float32, device=dev)
     for s_i in range(int(settings.samples_per_pixel)):
-        sampler = smp.make_sampler(px, py, int(frame_index) + s_i,
-                                   strategy=strategy)
-        sampler, aa_u, aa_v = smp.sample_2d(sampler, strategy,
-                                            smp.SampleDimension.AA, 0)
-        sampler, dof_u, dof_v = smp.sample_2d(sampler, strategy,
-                                              smp.SampleDimension.DOF, 0)
-        rays = generate_rays(
-            cam, px, py, w, h, aa_u, aa_v, dof_u, dof_v,
-            settings.lens_distortion, settings.f_factor,
-            settings.diaphragm_edges, settings.phi_shutter_max,
-            settings.vignette_strength)
-        if integrator is wht.whitted:
-            color, sampler, st_ = integrator(ps, settings, sampler, rays.o,
-                                             rays.d, n_lights=n_lights,
-                                             has_medium=has_medium)
-        elif integrator is adv.advanced:
-            color, sampler, st_ = integrator(ps, settings, sampler, rays.o,
-                                             rays.d, n_lights=n_lights)
-        else:
-            color, sampler, st_ = integrator(ps, settings, sampler, rays.o,
-                                             rays.d)
+        color_img, jx, jy, st_ = sample_pass(
+            ps, settings, cam, px, py, int(frame_index) + s_i, h=h, w=w,
+            rows=h, n_lights=n_lights, has_medium=has_medium)
         stats = stats + st_
-        color = color * rays.vignette
-
-        color_img = Vec3(_untiled(color.x, h, w), _untiled(color.y, h, w),
-                         _untiled(color.z, h, w))
-        jx = _untiled(aa_u - 0.5, h, w)
-        jy = _untiled(aa_v - 0.5, h, w)
         accum = film.accumulate(accum, film.splat_pass(color_img, jx, jy,
                                                        filt))
     return accum, stats

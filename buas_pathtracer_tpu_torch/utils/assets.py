@@ -11,8 +11,14 @@ that must match the triangle count or the mesh is rejected.
 Radiance HDR (``_decode_rgbe`` :119, ``parse_hdr`` :131,
 ``load_environment_map`` :191): the header's FORMAT check, the ``-Y h +X w``
 resolution string, adaptive-RLE or flat scanlines, and the RGBE decode with
-the reference's ``exp > 9`` cutoff.  The decode is numpy only; its output is
-value-equal to the JAX package's (``tests/test_torch_envmap.py``).
+the reference's ``exp > 9`` cutoff.
+
+Both go native first (``native/src/obj_parser.cpp``), as the JAX package
+does: when the native library loads, its verdict is final.  The Python OBJ
+parser and the numpy scanline decoder run only without the library (no
+g++, or ``BUAS_NO_NATIVE=1``).  On a malformed ``v`` line the two parsers
+differ, as the JAX package's do: the Python one zeroes the bad field, the
+native one the rest of the line.
 
 A missing file gives None: the scenes then skip the mesh or fall back to
 the gradient sky, as the reference does.
@@ -29,12 +35,17 @@ from ..models.mesh import Mesh
 
 
 def parse_obj(text: str, winding: str = "ccw") -> Optional[Mesh]:
-    """The OBJ text as a ``Mesh``, or None when it is rejected.
-
-    The port has no native OBJ parser yet: this is the Python parser,
-    ``_parse_obj_py``.  Its floats round through Python's float64
-    ``float()`` and then float32."""
-    return _parse_obj_py(text, winding)
+    """The OBJ text as a ``Mesh``, or None when it is rejected: the native
+    parser's verdict, or ``_parse_obj_py``'s without the native library."""
+    from ..native import parse_obj_native
+    res = parse_obj_native(text.encode("utf-8", errors="replace"),
+                           winding == "cw")
+    if res is False:  # no native library
+        return _parse_obj_py(text, winding)
+    if res is None:
+        return None
+    tri, nrm, tex = res
+    return Mesh(triangles=tri, normals=nrm, texcoords=tex)
 
 
 def _parse_obj_py(text: str, winding: str = "ccw") -> Optional[Mesh]:
@@ -169,7 +180,12 @@ def parse_hdr(data: bytes) -> Optional[np.ndarray]:
     if len(res) != 4 or res[0] != b"-Y" or res[2] != b"+X":
         return None  # only the common orientation, like the reference
     h, w = int(res[1]), int(res[3])
-    rgbe = _decode_scanlines(np.frombuffer(data, np.uint8, offset=pos), w, h)
+    from .. import native
+    if native.available():  # the native verdict is final
+        rgbe = native.hdr_decode_native(data[pos:], w, h)
+    else:
+        rgbe = _decode_scanlines(np.frombuffer(data, np.uint8, offset=pos),
+                                 w, h)
     return None if rgbe is None else _decode_rgbe(rgbe)
 
 

@@ -1,6 +1,7 @@
 """Procedural test meshes.
 
-Counterpart of ``buas_pathtracer_tpu/utils/procgen.py`` (``icosphere``): the
+Counterpart of ``buas_pathtracer_tpu/utils/procgen.py`` (``icosphere``,
+``torus``): the
 reference's mesh scenes load an OBJ that is not checked in, so the bench
 scene and the tests build subdivided icospheres instead.
 """
@@ -51,3 +52,26 @@ def icosphere(subdivisions: int = 3, radius: float = 1.0) -> Mesh:
     v = verts[faces] * radius  # (T, 3, 3)
     n = verts[faces]  # unit sphere normals = positions
     return Mesh(triangles=v.astype(np.float32), normals=n.astype(np.float32))
+
+
+def torus(major: float = 1.0, minor: float = 0.35,
+          seg_u: int = 48, seg_v: int = 24) -> Mesh:
+    """A torus around +y with per-vertex normals, two triangles a quad."""
+    u = np.linspace(0, 2 * np.pi, seg_u, endpoint=False)
+    v = np.linspace(0, 2 * np.pi, seg_v, endpoint=False)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    p = np.stack([np.cos(uu) * (major + minor * np.cos(vv)),
+                  minor * np.sin(vv),
+                  np.sin(uu) * (major + minor * np.cos(vv))], axis=-1)
+    nrm = np.stack([np.cos(uu) * np.cos(vv), np.sin(vv),
+                    np.sin(uu) * np.cos(vv)], axis=-1)
+    tris, tnorm = [], []
+    for i in range(seg_u):
+        for j in range(seg_v):
+            i2, j2 = (i + 1) % seg_u, (j + 1) % seg_v
+            a, b, c, d = p[i, j], p[i2, j], p[i2, j2], p[i, j2]
+            na, nb, nc, nd = nrm[i, j], nrm[i2, j], nrm[i2, j2], nrm[i, j2]
+            tris += [[a, b, c], [a, c, d]]
+            tnorm += [[na, nb, nc], [na, nc, nd]]
+    return Mesh(triangles=np.asarray(tris, np.float32),
+                normals=np.asarray(tnorm, np.float32))

@@ -32,7 +32,15 @@ waves of three held to the plain walk); a 16 spp Cornell Box
 ``take_picture`` interrupted and resumed from its checkpoint, bit-identical
 to an uninterrupted one; the CLI in a subprocess, its PNG equal to the
 in-process render's; and the viewer on an ephemeral port, its focus pick
-equal to the plain walk's t.  Each traversal kernel is held to its plain version with
+equal to the plain walk's t.  Then row-sharded rendering
+(``parallel/mesh.py``): the bench frame through ``ShardedRenderer`` on a
+world of one rank over NCCL, and the bench, hero and stress frames over 2
+ranks and a 1920x32 Lanczos-12 bench frame over 4 ranks that share the
+card over gloo, one process a rank, each gathered image bit-equal to the
+single-device frame on the card; and the native OBJ parser and HDR decoder
+against the Python ones on the synthetic assets, and a 64x64 bench frame
+through the threaded oracle walk (``BUAS_TRAVERSAL=threaded``) against the
+kernel frame.  Each traversal kernel is held to its plain version with
 equal outputs and equal stats (rows read, triangle tests) on every wave; each
 wave's record carries its time, bound, plain time, lane utilisation and the
 kernel's registers and spills from nvcc's report.  The post and
@@ -2215,6 +2223,270 @@ def run_viewer_phase(dev, card, tmp):
 
 
 # ---------------------------------------------------------------------------
+# 30-32. row-sharded rendering and the host code
+# ---------------------------------------------------------------------------
+
+# the frame of [30] and of [31]'s full-size cases
+SHARDED_SIZE = (1920, 1080)
+# the cases of [31]: name -> (ranks, scene builder, width, height, filter;
+# None: the scene's own); tests/test_scenes_sharded.py:109-122's cases at
+# full size, the Lanczos-12 case at 8 rows a rank (its halo spans 3 ranks)
+SHARDED_CASES = {
+    "bench": (2, "bench", *SHARDED_SIZE, None),
+    "bench_lanczos12": (4, "bench", 1920, 32, "Lanczos 12"),
+    "hero": (2, "hero", *SHARDED_SIZE, None),
+    "stress": (2, "stress", *SHARDED_SIZE, None),
+}
+SHARDED_FRAMES = 3
+WORLD_OF_ONE_FRAMES = 4  # [30]: one frame alone, three timed back to back
+THREADED_SIZE = 64
+
+
+def sharded_scene(builder, w, h):
+    from buas_pathtracer_tpu_torch.models import scenes
+    return getattr(scenes, f"build_{builder}_scene")(w, h)
+
+
+def sharded_rank(mesh, cases, frames):
+    """[31] on one rank (started by ``parallel.mesh.spawn_ranks``): each
+    case's scene built and packed on this rank, ``frames`` frames with the
+    halo exchange timed, and the launches of each case's render."""
+    from buas_pathtracer_tpu_torch.parallel.mesh import render_frames
+    out = {}
+    for name, (_, b, w, h, f) in cases.items():
+        sc = sharded_scene(b, w, h)
+        reset_launches()
+        out[name] = render_frames(mesh, sc, w, h, frames, filter_name=f,
+                                  time_exchange=True)
+        out[name]["launches"] = read_launches()
+    return out
+
+
+def single_frames(ps, sc, dev, w, h, frames, filter_name):
+    """The single-device accumulation of ``frames`` frames (CPU copy)."""
+    from buas_pathtracer_tpu_torch.runtime import film
+    from buas_pathtracer_tpu_torch.runtime.render import render_frame
+    accum = film.new_accumulation_buffer(h, w, dev)
+    for f_i in range(frames):
+        accum, stats = render_frame(
+            ps, sc.settings, sc.camera, accum, f_i, h=h, w=w,
+            n_lights=sc.n_lights, filter_name=filter_name,
+            has_medium=sc.has_medium, device=dev)
+    return accum.cpu(), stats.cpu()
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def run_world_of_one(dev, card, ps, scene, bench_ms):
+    """Phase 30: the bench frame through ``ShardedRenderer`` on a world of
+    one rank over NCCL on cuda:0, against ``render_frame`` on the card."""
+    import torch
+    import torch.distributed as dist
+    from buas_pathtracer_tpu_torch.parallel.mesh import ShardedRenderer
+    from buas_pathtracer_tpu_torch.runtime import film, post
+    W, H = SHARDED_SIZE
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            store, "store"), rank=0, world_size=1)
+        try:
+            r = ShardedRenderer(scene, W, H, device=dev)
+            reset_launches()
+            # a first frame alone, then the rest back to back with one sync
+            # at the end, as [6] times its frames
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.step()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(WORLD_OF_ONE_FRAMES - 1):
+                stats = r.step()
+            torch.cuda.synchronize()
+            first_ms = (t1 - t0) * 1e3
+            frame_ms = ((time.perf_counter() - t1)
+                        / (WORLD_OF_ONE_FRAMES - 1) * 1e3)
+            accum = r.gather_accum()
+            image = post.post_process(accum, scene.post_settings, device=dev)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            backend = r.mesh.backend
+        finally:
+            dist.destroy_process_group()
+    ref, ref_stats = single_frames(ps, scene, dev, W, H, WORLD_OF_ONE_FRAMES,
+                                   scene.filter_name)
+    same = bool(torch.equal(accum.cpu(), ref))
+    finite = bool(torch.isfinite(film.resolve(accum)).all())
+    log(f"[30] world of 1 ({backend}, cuda:0): bench {W}x{H}, "
+        f"{WORLD_OF_ONE_FRAMES} frames: first {first_ms:.3f} ms, then "
+        f"frame_ms {frame_ms:.3f} ([6]: {bench_ms:.3f}); resolved image "
+        f"bit-equal to "
+        f"render_frame {same}; stats [rays, visits, tests] "
+        f"{stats.cpu().tolist()} vs {ref_stats.tolist()}; launches "
+        f"{launches} ({card})")
+    stats_ok = (float(stats[0]) == float(ref_stats[0])
+                and np.allclose(stats.cpu().numpy(), ref_stats.numpy(),
+                                rtol=1e-6, atol=0.0))
+    if not (same and stats_ok and finite
+            and tuple(image.shape) == (H, W, 4)):
+        raise AssertionError("[30] the world-of-one frame or its stats "
+                             "differ from render_frame")
+    if not (launches["closest"] and launches["occlusion"]
+            and launches["post_rgba8"]):
+        raise AssertionError(f"[30] a kernel never ran: {launches}")
+    return dict(backend=backend, first_ms=first_ms, frame_ms=frame_ms,
+                bench_frame_ms=bench_ms, launches=launches)
+
+
+def run_sharded(dev, card, cells, bench_ms):
+    """Phases 30 and 31.  Returns the numbers and the launches summed over
+    [30] and every rank of [31]."""
+    import torch
+    from buas_pathtracer_tpu_torch.parallel.mesh import spawn_ranks
+    if SHARDED_SIZE == (1920, 1080):  # the cells are 1080p frames
+        ps, scene = cells["bench"]
+    else:
+        scene = sharded_scene("bench", *SHARDED_SIZE)
+        ps = scene.pack(device=dev)
+    totals = {}
+    one = run_world_of_one(dev, card, ps, scene, bench_ms)
+    add_launches(totals, one["launches"])
+    out = {"world_of_one": one}
+    for world in sorted({c[0] for c in SHARDED_CASES.values()}):
+        cases = {n: c for n, c in SHARDED_CASES.items() if c[0] == world}
+        t0 = time.perf_counter()
+        res = spawn_ranks(sharded_rank, ["cuda:0"] * world, "gloo",
+                          (cases, SHARDED_FRAMES))
+        wall = time.perf_counter() - t0
+        log(f"[31] {world} ranks sharing cuda:0 over gloo: "
+            f"{list(cases)} in {wall:.1f} s (process start, packs and "
+            f"frames)")
+        for name, (_, builder, w, h, filt) in cases.items():
+            if builder in cells and (w, h) == (1920, 1080):
+                rps, rsc = cells[builder]
+            else:
+                rsc = sharded_scene(builder, w, h)
+                rps = rsc.pack(device=dev)
+            filt = filt or rsc.filter_name
+            ref, ref_stats = single_frames(rps, rsc, dev, w, h,
+                                           SHARDED_FRAMES, filt)
+            got = res[0][name]
+            same = bool(torch.equal(got["accum"], ref))
+            ranks = []
+            for part in (rr[name] for rr in res):
+                add_launches(totals, part["launches"])
+                walks = part["launches"]
+                ex_ms = part["exchange_s"] / max(1, part["exchanges"]) * 1e3
+                ranks.append(dict(
+                    rank=part["rank"], rows=part["rows"],
+                    pack_s=part["pack_s"], split=part["split_tables"],
+                    frame_ms=[x * 1e3 for x in part["frame_s"]],
+                    exchange_ms_per_pass=ex_ms, launches=walks))
+                log(f"[31] {name} rank {part['rank']} rows {part['rows']}: "
+                    f"pack {part['pack_s']:.2f} s (split tables "
+                    f"{part['split_tables']}), frame_ms "
+                    f"{[round(x * 1e3, 3) for x in part['frame_s']]}, halo "
+                    f"exchange {ex_ms:.3f} ms a pass "
+                    f"({part['exchanges']} passes), launches {walks} "
+                    f"({card})")
+                key = "split_" if part["split_tables"] else ""
+                if not (walks[key + "closest"] and walks[key + "occlusion"]):
+                    raise AssertionError(f"[31] {name} rank {part['rank']}: "
+                                         f"a walk never ran: {walks}")
+            if (builder == "stress") != ranks[0]["split"]:
+                raise AssertionError(f"[31] {name}: split tables "
+                                     f"{ranks[0]['split']}")
+            log(f"[31] {name} {w}x{h} over {world} ranks ({filt}): gathered "
+                f"image bit-equal to the single-device frame {same}; stats "
+                f"[rays, visits, tests] {got['stats'].tolist()} vs "
+                f"{ref_stats.tolist()}")
+            stats_ok = (float(got["stats"][0]) == float(ref_stats[0])
+                        and np.allclose(got["stats"].numpy(),
+                                        ref_stats.numpy(), rtol=1e-6,
+                                        atol=0.0))
+            if not (same and stats_ok):
+                raise AssertionError(f"[31] {name}: the sharded frame or its "
+                                     "stats differ from the single-device "
+                                     f"one: {got['stats']} vs {ref_stats}")
+            out[name] = dict(ranks=world, size=(w, h), filter=filt,
+                             bit_equal=same, per_rank=ranks)
+    log(f"[31] launches over [30] and the ranks of [31]: {totals}")
+    return out, totals
+
+
+def run_host_code(dev, card, tmp):
+    """Phase 32: the native OBJ parser and HDR decoder against the Python
+    ones on [26]'s synthetic assets, and a small bench frame through the
+    threaded oracle walk against the kernel frame."""
+    from dataclasses import replace
+
+    import torch
+    from buas_pathtracer_tpu_torch import native
+    from buas_pathtracer_tpu_torch.models.scenes import build_bench_scene
+    from buas_pathtracer_tpu_torch.runtime.render import render
+    from buas_pathtracer_tpu_torch.utils import assets
+    asset_dir = os.path.join(tmp, "synthetic_assets")
+    with open(os.path.join(asset_dir, ASSET_MESH)) as f:
+        text = f.read()
+    t0 = time.perf_counter()
+    nat = assets.parse_obj(text)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = assets._parse_obj_py(text)
+    py_s = time.perf_counter() - t0
+    same_obj = all(
+        getattr(nat, k) is None and getattr(py, k) is None
+        or getattr(nat, k).tobytes() == getattr(py, k).tobytes()
+        for k in ("triangles", "normals", "texcoords"))
+    log(f"[32] OBJ {ASSET_MESH} ({len(text) / 1e6:.1f} MB, "
+        f"{nat.triangle_count} triangles): native {nat_s:.3f} s, Python "
+        f"{py_s:.3f} s, meshes byte-equal {same_obj}")
+    sky = os.path.join(asset_dir, next(iter(ASSET_SKIES)))
+    with open(sky, "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    hdr_nat = assets.parse_hdr(data)
+    hdr_nat_s = time.perf_counter() - t0
+    pos = data.index(b"\n", data.index(b"\n-Y ") + 1) + 1
+    h, w = hdr_nat.shape[:2]
+    t0 = time.perf_counter()
+    hdr_np = assets._decode_rgbe(assets._decode_scanlines(
+        np.frombuffer(data, np.uint8, offset=pos), w, h))
+    hdr_np_s = time.perf_counter() - t0
+    same_hdr = hdr_nat.tobytes() == hdr_np.tobytes()
+    log(f"[32] HDR {w}x{h}: native {hdr_nat_s:.3f} s, numpy "
+        f"{hdr_np_s:.3f} s, equal {same_hdr}; native library "
+        f"{native.available()}")
+    if not (native.available() and same_obj and same_hdr):
+        raise AssertionError("[32] the native host code differs")
+
+    n = THREADED_SIZE
+    sc = build_bench_scene(n, n)
+    sc.settings = replace(sc.settings, max_bounce_count=4)
+    img_k, _, st_k = render(sc, n, n, frames=1, device=dev)
+    with env_vars(BUAS_TRAVERSAL="threaded"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img_t, _, st_t = render(sc, n, n, frames=1, device=dev)
+        torch.cuda.synchronize()
+        thr_ms = (time.perf_counter() - t0) * 1e3
+    frac, rel = image_agreement(img_t, img_k)
+    log(f"[32] {n}x{n} bench frame, 4 bounces, BUAS_TRAVERSAL=threaded "
+        f"(plain PyTorch walk, pack included): {thr_ms:.1f} ms; against "
+        f"the kernel frame: pixels outside 2e-3 {frac * 100:.2f}%, mean rel "
+        f"err {rel:.3g}, rays {float(st_t[0]):.0f} vs {float(st_k[0]):.0f}"
+        f" ({card})")
+    if not np.isfinite(img_t).all() or frac > 0.01 or rel > 1e-3:
+        raise AssertionError("[32] the threaded frame disagrees")
+    return dict(obj_native_s=nat_s, obj_python_s=py_s,
+                obj_triangles=nat.triangle_count, hdr_native_s=hdr_nat_s,
+                hdr_numpy_s=hdr_np_s, hdr_size=(w, h),
+                threaded_frame_ms=thr_ms, threaded_outside=frac,
+                threaded_rel_err=rel)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2603,8 +2875,16 @@ def main(argv):
                        **run_progressive(dev, card, tmp),
                        **run_cli_phase(dev, card, tmp),
                        **run_viewer_phase(dev, card, tmp))
-    for r in records:  # the scene runs' launches beside the bench path's
-        r["launches_scenes"] = scene_launches.get(launch_key(r["name"]), 0)
+        # ---- 30-32. row-sharded rendering (a world of one over NCCL,
+        # ranks sharing the card over gloo) and the native host code with
+        # the threaded oracle walk ----
+        sharded, sharded_launches = run_sharded(dev, card, cells,
+                                                frame_s * 1e3)
+        host_code = run_host_code(dev, card, tmp)
+    for r in records:  # the scene runs' and the sharded runs' launches
+        key = launch_key(r["name"])
+        r["launches_scenes"] = scene_launches.get(key, 0)
+        r["launches_sharded"] = sharded_launches.get(key, 0)
 
     # ---- 25. records ----
     records.sort(key=lambda r: r["k"])
@@ -2613,6 +2893,7 @@ def main(argv):
                       "rays_per_frame_M": rays / 1e6, **stress, **hero,
                       "staged_turns": staged, "integrators_ms": others,
                       "blue_noise_frame_ms": bn_ms, "session": session,
+                      "sharded": sharded, "host_code": host_code,
                       "card": card}),
           flush=True)
     print(card, flush=True)

@@ -1,8 +1,9 @@
 """The port's command-line renderer (``python -m
 buas_pathtracer_tpu_torch.cli``) in a subprocess: ``--device cpu`` renders
 and writes the PNG of the in-process render of the same scene, pixel for
-pixel; ``--list`` names the twelve scenes; ``--devices 2`` and a run
-without a card are refused."""
+pixel; ``--list`` names the twelve scenes; ``--devices`` above the card
+count and a run without a card are refused (``--device cpu --devices 2``
+renders: tests/test_torch_mesh.py)."""
 
 import os
 import re
@@ -100,11 +101,13 @@ def test_list_names_the_scenes(empty_data):
 
 
 def test_several_devices_refused(tmp_path, empty_data):
+    """More ranks than cards (none visible here) are refused: one card is
+    never shared silently."""
     out = str(tmp_path / "never.png")
-    res = run_cli(["--devices", "2", "--device", "cpu", "--out", out],
-                  empty_data)
-    assert res.returncode != 0
-    assert "not ported" in res.stderr
+    res = run_cli(["--devices", "2", "--out", out], empty_data,
+                  hide_cards=True)
+    assert res.returncode == 2
+    assert "one rank a card" in res.stderr
     assert not os.path.exists(out)
 
 

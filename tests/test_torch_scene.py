@@ -143,8 +143,8 @@ def test_from_jax_arrays_round_trip():
     jps = scene_mesh(*J).pack()
     arrays = {k: np.asarray(v) for k, v in jps._asdict().items()
               if v is not None}
-    rt = from_jax_arrays(arrays, "cpu")
-    own = scene_mesh(*T).pack(device="cpu")
+    rt = from_jax_arrays(arrays, "cpu")  # the threaded tables come along
+    own = scene_mesh(*T).pack(device="cpu", threaded=True)
     for name in rt._fields:
         a, b = getattr(rt, name), getattr(own, name)
         if a is None or isinstance(a, int):  # no split tables: both None

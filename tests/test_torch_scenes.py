@@ -52,7 +52,9 @@ def use_synthetic_assets(tmp_path, monkeypatch):
 def assert_packs_equal(jps, tps: PackedScene):
     """Every field of the port's pack byte-equal to the JAX pack's, read
     through ``from_jax_arrays`` (Vec3 fields per component; index fields,
-    int32 or exact floats there, as int64 values)."""
+    int32 or exact floats there, as int64 values).  The JAX package always
+    packs the threaded tables, so the port's pack is made with
+    ``threaded=True``."""
     ref = from_jax_arrays({k: np.asarray(v) for k, v in jps._asdict().items()
                            if v is not None}, "cpu")
     for name in PackedScene._fields:
@@ -143,7 +145,7 @@ def test_scene_settings_equal(name, no_assets):
 def test_pack_byte_equal_without_assets(name, no_assets):
     j, t = build_pair(name)
     assert not t.meshes and t.env_map is None
-    assert_packs_equal(j.pack(), t.pack(device="cpu"))
+    assert_packs_equal(j.pack(), t.pack(device="cpu", threaded=True))
 
 
 @pytest.mark.parametrize("name", ASSET_SCENES)
@@ -157,7 +159,7 @@ def test_pack_byte_equal_with_synthetic_assets(name, tmp_path, monkeypatch):
     if name != "Cornell Box":
         assert t.env_map is not None and t.env_map.shape == ASSET_SKY + (3,)
         np.testing.assert_array_equal(t.env_map, j.env_map)
-    assert_packs_equal(j.pack(), t.pack(device="cpu"))
+    assert_packs_equal(j.pack(), t.pack(device="cpu", threaded=True))
 
 
 def test_csg_difference_packs_equal():
@@ -172,7 +174,7 @@ def test_csg_difference_packs_equal():
         return sc
     j, t = build(JScene, jvec), build(TScene, tvec)
     assert t.prims[2]["type"] == 5 and t.prims[2]["csg_a"] == 0
-    tps = t.pack(device="cpu")
+    tps = t.pack(device="cpu", threaded=True)
     assert_packs_equal(j.pack(), tps)
     assert int(tps.prim_type[2]) == 5
 
@@ -180,7 +182,7 @@ def test_csg_difference_packs_equal():
 def test_pack_comparison_catches_a_difference(no_assets):
     """One float of one table changed by an ulp fails the comparison."""
     j, t = build_pair("Week 6")
-    jps, tps = j.pack(), t.pack(device="cpu")
+    jps, tps = j.pack(), t.pack(device="cpu", threaded=True)
     rows = tps.wide_rows.clone()
     rows.view(torch.int32)[1, 5] += 1
     with pytest.raises(AssertionError, match="wide_rows differs"):

@@ -10,4 +10,4 @@ from test_torch_scenes import (  # noqa: F401  (no_assets: a fixture)
 def test_week7_pack_byte_equal(no_assets):  # noqa: F811
     j, t = build_pair("Week 7")
     assert len(t.prims) == len(j.prims) == 40378
-    assert_packs_equal(j.pack(), t.pack(device="cpu"))
+    assert_packs_equal(j.pack(), t.pack(device="cpu", threaded=True))
