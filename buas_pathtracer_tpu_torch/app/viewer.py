@@ -42,6 +42,7 @@ from ..ops import traverse_wide
 from ..ops.filters import FILTERS
 from ..runtime.progressive import ProgressiveRenderer
 from ..runtime.render import INTEGRATORS
+from ..utils import trace
 from ..utils.image import png_bytes
 from ..utils.timing import FrameHistory
 from . import sampler_debug as sd
@@ -197,6 +198,9 @@ class ViewerState:
     def stats(self) -> dict:
         r = self.renderer
         s = r.last_stats
+        # the record of the last frame shown (utils/trace.py): its waits
+        # on the card, the host's issue time, and each bounce's live lanes
+        rec = trace.last_displayed()
         return {
             "scene": self.scene_name,
             "spp": r.frame_count,
@@ -207,6 +211,10 @@ class ViewerState:
             "rays": float(s[0]),
             "node_visits": float(s[1]),
             "tri_tests": float(s[2]),
+            "waits": rec.waits if rec else 0,
+            "wait_ms": round(rec.wait_ns / 1e6, 3) if rec else 0.0,
+            "host_issue_ms": round(rec.host_issue_ns / 1e6, 3) if rec else 0.0,
+            "live_lanes": [live for _, _, live in rec.bounces] if rec else [],
             "walk_mode": self.walk_mode,
             "scenes": [sc.name for sc in SCENES],
             "integrators": list(INTEGRATORS.keys()),

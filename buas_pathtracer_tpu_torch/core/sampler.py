@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import rng
 
 
@@ -249,7 +250,8 @@ def make_sampler(x, y, sample_index, *, strategy: int,
     seed = rng.hash_u32(rng.hash_coordinate_2d(x, y), sample_index,
                         int(frame_entropy) & rng.M32)
     if strategy == Strategy.BLUE_NOISE:
-        masks = torch.from_numpy(_bn_masks()).to(x.device)  # (T, T, K)
+        masks = trace.wait("sampler_tables", torch.from_numpy(
+            _bn_masks()).to, x.device)  # (T, T, K)
         bn = masks[y & (BN_TILE - 1), x & (BN_TILE - 1)].T.contiguous()
     else:
         bn = torch.zeros((0,) + tuple(x.shape), dtype=torch.float32,
@@ -276,7 +278,8 @@ def _first_bounce_bases(x, y, sample_index, strategy: int,
             rows.append(torch.remainder(bv + bn[2 * d + 1], 1.0))
         return torch.stack(rows)
     col = sample_index % STRATA_COUNT
-    t_pass = torch.from_numpy(_MERGED_PERMS[:, col, :].copy()).to(x.device)
+    t_pass = trace.wait("sampler_tables", torch.from_numpy(
+        _MERGED_PERMS[:, col, :].copy()).to, x.device)
     r = rng.hash_coordinate_2d(x, y) & 255
     g = t_pass[r]  # (N, D) exact small-int float values
     rows = []
@@ -291,7 +294,8 @@ def _stratum_index(s: Sampler, dim: int):
     index_offset = (73856093 * int(dim)) ^ rng.hash_coordinate_2d(s.x, s.y)
     row = index_offset & 255
     col = s.sample_index % STRATA_COUNT
-    perm = torch.from_numpy(_PERM_SETS.astype(np.int64)).to(s.x.device)
+    perm = trace.wait("sampler_tables", torch.from_numpy(
+        _PERM_SETS.astype(np.int64)).to, s.x.device)
     return perm[row, col]
 
 

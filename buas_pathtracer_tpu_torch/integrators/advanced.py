@@ -52,6 +52,7 @@ from ..ops.shading import (cbrt, evaluate_checker, fresnel_dielectric,
                            map_to_cosine_weighted_hemisphere,
                            map_to_hemisphere, refract, sample_on_unit_sphere)
 from ..ops.traverse import BIG_T, _intersect_planes
+from ..utils import trace
 from .common import (has_env, light_pick_pdf, light_radius_of_prim,
                      light_rows, pick_random_light_slot,
                      random_point_on_light_rows, sample_sky, slot_to_prim)
@@ -65,11 +66,6 @@ STACK_DEPTH = 8  # reference uses 64 (integrators.cpp:602)
 # the widths that left the card the least device time (PERF.md)
 DEFAULT_TWO_PHASE = "0"
 DEFAULT_PHASE_BLOCKS = "1024,256"
-
-# when a list, each bounce appends (bounce, lanes it ran at, live lanes):
-# the staged loop's shape, read by chip_smoke.py (the live count is read
-# for the loop's own test anyway, so this costs nothing)
-BOUNCE_LOG = None
 
 
 class _Flags(NamedTuple):
@@ -210,8 +206,9 @@ def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
     lane = torch.arange(STACK_DEPTH, device=dev)[:, None]
     strategy = f.strategy
 
-    hit = traverse_wide.intersect_scene(
-        ps, o, d, max_t=torch.where(st.live_r, BIG_T, -1.0))
+    with trace.span("pt.intersect"):
+        hit = traverse_wide.intersect_scene(
+            ps, o, d, max_t=torch.where(st.live_r, BIG_T, -1.0))
     found = hit.valid & alive
     missed = ~hit.valid & alive
     stats = stats + torch.stack([alive.sum().to(torch.float32),
@@ -340,35 +337,38 @@ def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
     # ---- next-event estimation: light and env samples, then their
     # shadow queries (reference intersect_shadow_ray, intersection.cpp:
     # 600-604) ----
-    queries = []
-    if f.nee:
-        s, lp_u = smp.sample_1d(s, strategy,
-                                smp.SampleDimension.LIGHT_SELECTION, bounce)
-        slot, light_rcp_pdf = pick_random_light_slot(ps, lp_u, hit.p,
-                                                     f.is_lights)
-        s, dl_u, dl_v = smp.sample_2d(
-            s, strategy, smp.SampleDimension.DIRECT_LIGHTING, bounce)
-        lT = light_rows(ps, slot)
-        ls = random_point_on_light_rows(lT, dl_u, dl_v, hit.p)
-        n_dot_l = dot(N, ls.L)
-        nl_dot_l = -dot(ls.Nl, ls.L)
-        facing = (n_dot_l > 0.0) & (nl_dot_l > 0.0) & do_diffuse & found \
-            & ~t_emissive
-        queries.append((hit.p + ls.L * EPSILON, ls.L,
-                        torch.where(facing, ls.dist - 2.0 * EPSILON, -1.0),
-                        slot_to_prim(ps, slot)))
-    if f.env_nee:
-        s, e_u, e_v = smp.sample_2d(s, strategy,
-                                    smp.SampleDimension.ENV_LIGHTING, bounce)
-        d_e, pdf_e, rad_e = envmap.sample_env_alias(
-            ps.env_alias_prob, ps.env_alias_idx, ps.env_pdf_num,
-            ps.env_pixels, e_u, e_v)
-        n_dot_e = dot(N, d_e)
-        facing_e = (n_dot_e > 0.0) & do_diffuse & found & ~t_emissive
-        queries.append((hit.p + d_e * EPSILON, d_e,
-                        torch.where(facing_e, BIG_T, -1.0),
-                        torch.full((n,), -1, dtype=torch.int64, device=dev)))
-    occ = _shadow(ps, queries) if queries else []
+    with trace.span("pt.nee"):
+        queries = []
+        if f.nee:
+            s, lp_u = smp.sample_1d(
+                s, strategy, smp.SampleDimension.LIGHT_SELECTION, bounce)
+            slot, light_rcp_pdf = pick_random_light_slot(ps, lp_u, hit.p,
+                                                         f.is_lights)
+            s, dl_u, dl_v = smp.sample_2d(
+                s, strategy, smp.SampleDimension.DIRECT_LIGHTING, bounce)
+            lT = light_rows(ps, slot)
+            ls = random_point_on_light_rows(lT, dl_u, dl_v, hit.p)
+            n_dot_l = dot(N, ls.L)
+            nl_dot_l = -dot(ls.Nl, ls.L)
+            facing = (n_dot_l > 0.0) & (nl_dot_l > 0.0) & do_diffuse \
+                & found & ~t_emissive
+            queries.append((hit.p + ls.L * EPSILON, ls.L,
+                            torch.where(facing, ls.dist - 2.0 * EPSILON,
+                                        -1.0),
+                            slot_to_prim(ps, slot)))
+        if f.env_nee:
+            s, e_u, e_v = smp.sample_2d(
+                s, strategy, smp.SampleDimension.ENV_LIGHTING, bounce)
+            d_e, pdf_e, rad_e = envmap.sample_env_alias(
+                ps.env_alias_prob, ps.env_alias_idx, ps.env_pdf_num,
+                ps.env_pixels, e_u, e_v)
+            n_dot_e = dot(N, d_e)
+            facing_e = (n_dot_e > 0.0) & do_diffuse & found & ~t_emissive
+            queries.append((hit.p + d_e * EPSILON, d_e,
+                            torch.where(facing_e, BIG_T, -1.0),
+                            torch.full((n,), -1, dtype=torch.int64,
+                                       device=dev)))
+        occ = _shadow(ps, queries) if queries else []
 
     if f.nee:
         visible = facing & ~occ[0]
@@ -452,15 +452,16 @@ def _loop(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int,
           break_width):
     """Bounces while any lane lives, up to ``max_bounces``; with a
     ``break_width``, stops before a bounce >= 1 whose live count fits it.
-    Returns (state, stats, bounce)."""
+    Each bounce goes into the frame record (``utils/trace.py``).  Returns
+    (state, stats, bounce)."""
     while bounce < f.max_bounces:
-        nlive = int(st.alive.sum())
-        if nlive == 0 or (break_width is not None and bounce >= 1
-                          and nlive <= break_width):
-            break
-        if BOUNCE_LOG is not None:
-            BOUNCE_LOG.append((bounce, int(st.alive.shape[0]), nlive))
-        st, stats = _bounce(ps, f, st, stats, bounce)
+        with trace.span("pt.bounce"):
+            nlive = trace.wait("live_count", int, st.alive.sum())
+            if nlive == 0 or (break_width is not None and bounce >= 1
+                              and nlive <= break_width):
+                break
+            trace.bounce(bounce, int(st.alive.shape[0]), nlive)
+            st, stats = _bounce(ps, f, st, stats, bounce)
         bounce += 1
     return st, stats, bounce
 
@@ -471,32 +472,35 @@ def _run_stage(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int,
     narrower stages after it).  Returns (totals at ``st``'s width,
     stats)."""
     nbl = widths[i]
-    key, live_r = _stage_sort_key(ps, st.o, st.d, st.alive)
-    ids = torch.argsort(key, stable=True)[:nbl]
-    sb = _permute_state(ids, st._replace(live_r=live_r))
-    dev = ids.device
-    s2 = st.s
-    sb = sb._replace(
-        # pixel coordinates and the first-bounce bases are never read
-        # after bounce 0: zero placeholders of the stage's width
-        s=smp.Sampler(
-            x=torch.zeros(nbl, dtype=torch.int64, device=dev),
-            y=torch.zeros(nbl, dtype=torch.int64, device=dev),
-            sample_index=s2.sample_index, state=sb.s.state,
-            bn=torch.zeros((0, nbl), dtype=torch.float32, device=dev),
-            pre=torch.zeros((s2.pre.shape[0], nbl), dtype=torch.float32,
-                            device=dev)))
+    with trace.span("pt.stage"):
+        key, live_r = _stage_sort_key(ps, st.o, st.d, st.alive)
+        ids = torch.argsort(key, stable=True)[:nbl]
+        sb = _permute_state(ids, st._replace(live_r=live_r))
+        dev = ids.device
+        s2 = st.s
+        sb = sb._replace(
+            # pixel coordinates and the first-bounce bases are never read
+            # after bounce 0: zero placeholders of the stage's width
+            s=smp.Sampler(
+                x=torch.zeros(nbl, dtype=torch.int64, device=dev),
+                y=torch.zeros(nbl, dtype=torch.int64, device=dev),
+                sample_index=s2.sample_index, state=sb.s.state,
+                bn=torch.zeros((0, nbl), dtype=torch.float32, device=dev),
+                pre=torch.zeros((s2.pre.shape[0], nbl), dtype=torch.float32,
+                                device=dev)))
     next_w = widths[i + 1] if i + 1 < len(widths) else None
     sb, stats, bounce = _loop(ps, f, sb, stats, bounce, next_w)
-    if next_w is not None and bounce < f.max_bounces and bool(sb.alive.any()):
+    if next_w is not None and bounce < f.max_bounces and trace.wait(
+            "live_any", bool, sb.alive.any()):
         tb, stats = _run_stage(ps, f, sb, stats, bounce, widths, i + 1)
     else:
         tb = sb.total
     # restore, not add: the stage totals already hold each lane's gathered
     # total, so the single loop's accumulation order is kept; lane j of the
     # stage came from parent lane ids[j]
-    out = torch.stack([st.total.x, st.total.y, st.total.z]).index_copy_(
-        1, ids, torch.stack([tb.x, tb.y, tb.z]))
+    with trace.span("pt.stage"):
+        out = torch.stack([st.total.x, st.total.y, st.total.z]).index_copy_(
+            1, ids, torch.stack([tb.x, tb.y, tb.z]))
     return Vec3(out[0], out[1], out[2]), stats
 
 
@@ -523,6 +527,7 @@ def advanced(ps: PackedScene, settings: SceneSettings, sampler: smp.Sampler,
     st, stats, bounce = _loop(ps, f, st, stats, 0,
                               widths[0] if staged else None)
     total = st.total
-    if staged and bounce < f.max_bounces and bool(st.alive.any()):
+    if staged and bounce < f.max_bounces and trace.wait(
+            "live_any", bool, st.alive.any()):
         total, stats = _run_stage(ps, f, st, stats, bounce, widths, 0)
     return total, st.s, stats

@@ -12,12 +12,14 @@ from ..core import sampler as smp
 from ..core.vec import Vec3, where as vwhere
 from ..models.scene import PackedScene, SceneSettings
 from ..ops import traverse_wide
+from ..utils import trace
 from .common import sample_sky
 
 
 def _stats(ray_o: Vec3, hit):
-    return torch.stack([torch.tensor(float(ray_o.x.numel()),
-                                     device=ray_o.x.device),
+    return torch.stack([trace.wait("stats", torch.tensor,
+                                   float(ray_o.x.numel()),
+                                   device=ray_o.x.device),
                         hit.node_visits.to(torch.float32),
                         hit.tri_tests.to(torch.float32)])
 

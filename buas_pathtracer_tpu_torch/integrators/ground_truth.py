@@ -20,6 +20,7 @@ from ..models.scene import PackedScene, SceneSettings
 from ..ops import traverse_wide
 from ..ops.shading import fresnel_dielectric, map_to_hemisphere
 from ..ops.traverse import BIG_T
+from ..utils import trace
 from .common import evaluate_material, sample_sky
 
 
@@ -35,7 +36,8 @@ def ground_truth_iterative(ps: PackedScene, settings: SceneSettings,
     state = sampler.state
     stats = torch.zeros(3, dtype=torch.float32, device=dev)
     bounce = 0
-    while bounce < int(settings.max_bounce_count) and bool(alive.any()):
+    while bounce < int(settings.max_bounce_count) and trace.wait(
+            "live_any", bool, alive.any()):
         hit = traverse_wide.intersect_scene(
             ps, o, d, max_t=torch.where(alive, BIG_T, -1.0))
         stats = stats + torch.stack([alive.sum().to(torch.float32),

@@ -29,6 +29,7 @@ from ..ops import traverse_wide
 from ..ops.shading import (cbrt, fresnel_dielectric, refract,
                            sample_on_unit_sphere)
 from ..ops.traverse import BIG_T
+from ..utils import trace
 from .common import evaluate_material, random_point_on_light_rows, sample_sky
 
 
@@ -78,7 +79,8 @@ def whitted(ps: PackedScene, settings: SceneSettings, sampler: smp.Sampler,
     child_used = torch.zeros(n_in, dtype=torch.bool, device=dev)
 
     bounce = 0
-    while bounce < max_bounces and bool(alive.any()):
+    while bounce < max_bounces and trace.wait("live_any", bool,
+                                              alive.any()):
         hit = traverse_wide.intersect_scene(
             ps, o, d, max_t=torch.where(alive, BIG_T, -1.0))
         found = hit.valid & alive

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core.vec import PI, Vec3, dot, lerp, normalize, v3
+from ..utils import trace
 
 
 class Camera(NamedTuple):
@@ -81,9 +82,11 @@ def recompute(cam: Camera) -> Camera:
 
 
 def camera_on(cam: Camera, device) -> Camera:
-    """Every scalar field as its own float32 0-d tensor on ``device``."""
+    """Every scalar field as its own float32 0-d tensor on ``device``
+    (each copy a wait of the site ``camera``)."""
     def s(v):
-        return torch.tensor(float(v), dtype=torch.float32, device=device)
+        return trace.wait("camera", torch.tensor, float(v),
+                          dtype=torch.float32, device=device)
 
     def sv(v):
         return Vec3(s(v.x), s(v.y), s(v.z))

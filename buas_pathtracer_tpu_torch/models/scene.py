@@ -33,6 +33,7 @@ from ..core.device import resolve_device
 from ..core.sampler import Strategy
 from ..core.vec import Affine, Vec3
 from ..ops import bvh as bvh_mod
+from ..utils import trace
 from . import materials as mat_mod
 from .camera import Camera, make_camera
 from .mesh import Mesh
@@ -270,15 +271,20 @@ class Scene:
         forces the choice (a scene whose root is a triangle leaf or empty
         never splits).  ``threaded`` None: pack the threaded BVH and the
         triangle soup when ``BUAS_TRAVERSAL=threaded``; True / False forces
-        the choice."""
-        dev = resolve_device(device)
-        arrays = self._pack_arrays(bvh_method)
-        arrays.update(_split_tables(arrays["wide_rows"], split))
-        if threaded is None:
-            threaded = os.environ.get("BUAS_TRAVERSAL") == "threaded"
-        if threaded:
-            arrays.update(self._threaded_tables())
-        return _to_device(arrays, dev)
+        the choice.  The set-up phase ``scene_pack``, in three: ``.build``
+        (the tables on the host), ``.split`` and ``.upload``."""
+        with trace.phase("scene_pack"):
+            dev = resolve_device(device)
+            with trace.phase("scene_pack.build"):
+                arrays = self._pack_arrays(bvh_method)
+                if threaded is None:
+                    threaded = os.environ.get("BUAS_TRAVERSAL") == "threaded"
+                if threaded:
+                    arrays.update(self._threaded_tables())
+            with trace.phase("scene_pack.split"):
+                arrays.update(_split_tables(arrays["wide_rows"], split))
+            with trace.phase("scene_pack.upload"):
+                return _to_device(arrays, dev)
 
     def _threaded_tables(self) -> Dict:
         """The threaded BVH and the triangle soup (JAX scene.py:337-358,

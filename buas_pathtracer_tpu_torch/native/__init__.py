@@ -27,6 +27,8 @@ import threading
 
 import numpy as np
 
+from ..utils import trace
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src")
 _BUILD = os.path.join(_DIR, "_build")
@@ -89,10 +91,11 @@ def _load():
         _tried = True
         if os.environ.get("BUAS_NO_NATIVE"):
             return None
-        so = _build()
-        if so is None:
+        with trace.phase("kernel_load"):  # built or loaded
+            so = _build()
+            lib = None if so is None else ctypes.CDLL(so)
+        if lib is None:
             return None
-        lib = ctypes.CDLL(so)
 
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

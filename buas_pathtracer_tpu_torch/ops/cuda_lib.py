@@ -27,6 +27,8 @@ import subprocess
 import tempfile
 import threading
 
+from ..utils import trace
+
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
@@ -152,16 +154,18 @@ def _so_path() -> str:
 
 
 def load():
-    """The loaded kernel library; builds it first if needed.  Raises when
-    the build fails: no caller falls back to a plain version."""
+    """The loaded kernel library; builds it first if needed (the set-up
+    phase ``kernel_load``).  Raises when the build fails: no caller falls
+    back to a plain version."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
         so = _so_path()
-        if not os.path.exists(so):
-            _build(so)
-        lib = ctypes.CDLL(so)
+        with trace.phase("kernel_load"):
+            if not os.path.exists(so):
+                _build(so)
+            lib = ctypes.CDLL(so)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.wide_traverse_launch.restype = ci
         lib.wide_traverse_launch.argtypes = [

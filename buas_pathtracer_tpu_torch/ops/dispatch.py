@@ -33,6 +33,7 @@ import os
 import torch
 
 from ..core.vec import Vec3
+from ..utils import trace
 from . import intersect, packet
 from .wide_bvh import KIND_INTERNAL, WIDE
 
@@ -77,7 +78,8 @@ def _octant(d: Vec3):
 
 def _interleave(table, q):
     """OR over the three axes of table[q[i]] << i."""
-    s = table.to(q.device)[q] << _AXIS.to(q.device)
+    s = (trace.wait("key_tables", table.to, q.device)[q]
+         << trace.wait("key_tables", _AXIS.to, q.device))
     return s[0] | s[1] | s[2]
 
 

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from ..core.vec import Vec3
+from ..utils import trace
 from . import cuda_lib, intersect
 from .wide_bvh import (DMA_LEAF_K, KIND_EMPTY, KIND_INTERNAL, KIND_PRIM,
                        KIND_TRIS, LEAF_ROW_W, ROW_W, WIDE, WIDE_LEAF)
@@ -47,10 +48,6 @@ PRIM_SPHERE = 2
 # the unified table (62.6 MB) does not.  (The JAX package splits at the
 # TPU's 30 MB VMEM budget instead.)
 RESIDENT_TABLE_LIMIT_BYTES = 50 * 1000 * 1000
-
-# launches per instantiation, counted where the kernel is launched
-LAUNCHES = {"closest": 0, "occlusion": 0,
-            "split_closest": 0, "split_occlusion": 0}
 
 
 def stack_fits(depth: int) -> bool:
@@ -100,8 +97,9 @@ def _check(tables, o: Vec3, d: Vec3, t0, ign, depth: int):
 def _launch(name, key, tables, o: Vec3, d: Vec3, t0, ign, occlusion,
             steps=None):
     """Allocate the outputs and the ray counter and launch ``csrc/<name>.cu``
-    on the current stream; ``key`` names the launch counter.  ``steps``, an
-    int64 (1,) tensor, if given, gets the warp steps that read a row added."""
+    on the current stream; ``key`` names the launch counter
+    (``utils/trace.py``).  ``steps``, an int64 (1,) tensor, if given, gets
+    the warp steps that read a row added."""
     lib = cuda_lib.load()
     if getattr(lib, f"{name}_max_stack")() != STACK:
         raise RuntimeError(f"csrc/{name}.cu STACK differs from ops/packet.py")
@@ -131,7 +129,7 @@ def _launch(name, key, tables, o: Vec3, d: Vec3, t0, ign, occlusion,
             nxt.data_ptr(), None if steps is None else steps.data_ptr(),
             blocks, stream)
     cuda_lib.check(rc, name)
-    LAUNCHES[key] += 1
+    trace.launch(key)
     return t, prim, tri, bv, bw, stats
 
 

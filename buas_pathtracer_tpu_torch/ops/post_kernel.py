@@ -13,10 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import cuda_lib
-
-# launches, counted where the kernel is launched
-LAUNCHES = {"post_rgba8": 0}
 
 
 def _check(accum, tile):
@@ -64,7 +62,7 @@ def post_rgba8(accum, tile, settings) -> torch.Tensor:
             int(settings.contrast != 0.0), int(bool(settings.dither)),
             stream)
     cuda_lib.check(rc, "post_rgba8")
-    LAUNCHES["post_rgba8"] += 1
+    trace.launch("post_rgba8")
     return out
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.vec import Vec3
+from ..utils import trace
 from . import cuda_lib
 from .wide_bvh import KIND_TRIS, WIDE_LEAF
 
@@ -38,9 +39,6 @@ SPLIT_WAVES = 16
 # the plain version tests rays against triangles in chunks of at most this
 # many (ray, triangle) pairs, so the CPU never holds N x T
 PLAIN_CHUNK_PAIRS = 1 << 22
-
-# launches, counted where the kernel is launched
-LAUNCHES = {"tristream_closest": 0}
 
 
 def pack_tris(tri_a: np.ndarray, tri_e1: np.ndarray, tri_e2: np.ndarray
@@ -129,7 +127,7 @@ def intersect_tristream(ray_o: Vec3, ray_d: Vec3, tris):
             t.data_ptr(), tid.data_ptr(), u.data_ptr(), v.data_ptr(),
             stream)
     cuda_lib.check(rc, "tristream_closest")
-    LAUNCHES["tristream_closest"] += 1
+    trace.launch("tristream_closest")
     return t, tid, u, v
 
 

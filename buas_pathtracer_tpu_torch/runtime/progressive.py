@@ -16,6 +16,8 @@ protocol between passes, the reference's per-sample cancel.
 On the device: the accumulation buffer and the passes' stats stay on the
 renderer's device.  ``_needs_reset`` compares host values only, and the
 stats are read once a frame (``last_stats``), so a pass adds no sync.
+Each frame and the displays after it make one record of the tracer
+(``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from ..core.device import resolve_device
 from ..models.camera import Camera
 from ..models.scene import PostProcessSettings, Scene, SceneSettings
+from ..utils import trace
 from ..utils.image import write_bmp, write_png
 from . import checkpoint as ckpt
 from . import film, post
@@ -89,37 +92,41 @@ class ProgressiveRenderer:
         frame within one pass, and the next call commits and resets.  The
         passes use the fused frame's sample indices in its order, so the
         image is bit-identical to ``render_frame`` with spp samples."""
-        if self._needs_reset():
-            self.settings = self.new_settings
-            self.camera = self.new_camera
-            self.filter_name = self.new_filter
-            self.accum = film.new_accumulation_buffer(self.h, self.w,
-                                                      self.device)
-            self.frame_count = 0
-        spp = int(self.settings.samples_per_pixel)
-        if spp == 1:
-            stats = self._render_pass(self.settings)
-        else:
-            pass_settings = replace(self.settings, samples_per_pixel=1)
-            stats = torch.zeros(3, dtype=torch.float32, device=self.device)
-            for _ in range(spp):
-                if self._needs_reset():
-                    break  # cooperative cancel: drop the partial frame
-                stats = stats + self._render_pass(pass_settings)
-        self.last_stats = stats.cpu().numpy().astype(np.float64)
+        with trace.frame():
+            if self._needs_reset():
+                self.settings = self.new_settings
+                self.camera = self.new_camera
+                self.filter_name = self.new_filter
+                self.accum = film.new_accumulation_buffer(self.h, self.w,
+                                                          self.device)
+                self.frame_count = 0
+            spp = int(self.settings.samples_per_pixel)
+            if spp == 1:
+                stats = self._render_pass(self.settings)
+            else:
+                pass_settings = replace(self.settings, samples_per_pixel=1)
+                stats = torch.zeros(3, dtype=torch.float32,
+                                    device=self.device)
+                for _ in range(spp):
+                    if self._needs_reset():
+                        break  # cooperative cancel: drop the partial frame
+                    stats = stats + self._render_pass(pass_settings)
+            self.last_stats = trace.wait("stats", stats.cpu).numpy().astype(
+                np.float64)
         return self.frame_count
 
     # -- output --------------------------------------------------------------
     def resolve_hdr(self) -> np.ndarray:
-        return film.resolve(self.accum).cpu().numpy()
+        return trace.wait("readback", film.resolve(self.accum).cpu).numpy()
 
     def display_rgba8(self, post_settings: Optional[PostProcessSettings] = None
                       ) -> np.ndarray:
         """(H, W, 4) uint8 through ``post.post_process`` (the post kernel on
         the card)."""
-        pp = post_settings or self.scene.post_settings
-        return post.post_process(self.accum, pp,
-                                 device=self.device).cpu().numpy()
+        with trace.display():
+            pp = post_settings or self.scene.post_settings
+            img = post.post_process(self.accum, pp, device=self.device)
+            return trace.wait("readback", img.cpu).numpy()
 
     def take_picture(self, spp: int, path: str, progress=None,
                      checkpoint_every: int = 0,

@@ -31,6 +31,7 @@ from ..integrators import whitted as wht
 from ..models.camera import Camera, camera_on, generate_rays
 from ..models.scene import PackedScene, Scene, SceneSettings
 from ..ops.filters import find_filter
+from ..utils import trace
 from . import film
 
 INTEGRATORS: Dict[str, Callable] = {
@@ -94,16 +95,17 @@ def sample_pass(ps: PackedScene, settings: SceneSettings, cam: Camera,
     jitters jx, jy (rows, w) and stats (3,)."""
     integrator = find_integrator(settings.integrator)
     strategy = int(settings.sampling_strategy)
-    sampler = smp.make_sampler(px, py, sample_index, strategy=strategy)
-    sampler, aa_u, aa_v = smp.sample_2d(sampler, strategy,
-                                        smp.SampleDimension.AA, 0)
-    sampler, dof_u, dof_v = smp.sample_2d(sampler, strategy,
-                                          smp.SampleDimension.DOF, 0)
-    rays = generate_rays(
-        cam, px, py, w, h, aa_u, aa_v, dof_u, dof_v,
-        settings.lens_distortion, settings.f_factor,
-        settings.diaphragm_edges, settings.phi_shutter_max,
-        settings.vignette_strength)
+    with trace.span("pt.camera"):
+        sampler = smp.make_sampler(px, py, sample_index, strategy=strategy)
+        sampler, aa_u, aa_v = smp.sample_2d(sampler, strategy,
+                                            smp.SampleDimension.AA, 0)
+        sampler, dof_u, dof_v = smp.sample_2d(sampler, strategy,
+                                              smp.SampleDimension.DOF, 0)
+        rays = generate_rays(
+            cam, px, py, w, h, aa_u, aa_v, dof_u, dof_v,
+            settings.lens_distortion, settings.f_factor,
+            settings.diaphragm_edges, settings.phi_shutter_max,
+            settings.vignette_strength)
     if integrator is wht.whitted:
         color, _, stats = integrator(ps, settings, sampler, rays.o, rays.d,
                                      n_lights=n_lights,
@@ -113,11 +115,14 @@ def sample_pass(ps: PackedScene, settings: SceneSettings, cam: Camera,
                                      n_lights=n_lights)
     else:
         color, _, stats = integrator(ps, settings, sampler, rays.o, rays.d)
-    color = color * rays.vignette
-    color_img = Vec3(_untiled(color.x, rows, w), _untiled(color.y, rows, w),
-                     _untiled(color.z, rows, w))
-    return (color_img, _untiled(aa_u - 0.5, rows, w),
-            _untiled(aa_v - 0.5, rows, w), stats)
+    with trace.span("pt.camera"):
+        color = color * rays.vignette
+        color_img = Vec3(_untiled(color.x, rows, w),
+                         _untiled(color.y, rows, w),
+                         _untiled(color.z, rows, w))
+        jx = _untiled(aa_u - 0.5, rows, w)
+        jy = _untiled(aa_v - 0.5, rows, w)
+    return color_img, jx, jy, stats
 
 
 def render_frame(ps: PackedScene, settings: SceneSettings, cam: Camera,
@@ -136,17 +141,20 @@ def render_frame(ps: PackedScene, settings: SceneSettings, cam: Camera,
     check_on(dev, accum, "accum")
     dev = accum.device
     filt = find_filter(filter_name)
-    cam = camera_on(cam, dev)
-    px, py = pixel_rows(0, h, w, dev)
+    with trace.span("pt.camera"):
+        cam = camera_on(cam, dev)
+        px, py = pixel_rows(0, h, w, dev)
 
     stats = torch.zeros(3, dtype=torch.float32, device=dev)
     for s_i in range(int(settings.samples_per_pixel)):
-        color_img, jx, jy, st_ = sample_pass(
-            ps, settings, cam, px, py, int(frame_index) + s_i, h=h, w=w,
-            rows=h, n_lights=n_lights, has_medium=has_medium)
-        stats = stats + st_
-        accum = film.accumulate(accum, film.splat_pass(color_img, jx, jy,
-                                                       filt))
+        with trace.span("pt.pass"):
+            color_img, jx, jy, st_ = sample_pass(
+                ps, settings, cam, px, py, int(frame_index) + s_i, h=h, w=w,
+                rows=h, n_lights=n_lights, has_medium=has_medium)
+            stats = stats + st_
+            with trace.span("pt.film"):
+                accum = film.accumulate(accum, film.splat_pass(
+                    color_img, jx, jy, filt))
     return accum, stats
 
 

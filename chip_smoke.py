@@ -767,16 +767,21 @@ def compare_walks(out, ref, occlusion, what):
         raise AssertionError(f"{what}: {int(diff.sum())} triangle mismatches")
 
 
+_LAUNCH_BASE = {}
+
+
 def reset_launches():
-    from buas_pathtracer_tpu_torch.ops import packet, post_kernel, tristream
-    for counts in (packet.LAUNCHES, post_kernel.LAUNCHES, tristream.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    """Start counting the port's kernel launches (the tracer's
+    process totals) from here."""
+    from buas_pathtracer_tpu_torch.utils import trace
+    _LAUNCH_BASE.update(trace.launch_totals())
 
 
 def read_launches():
-    from buas_pathtracer_tpu_torch.ops import packet, post_kernel, tristream
-    return {**packet.LAUNCHES, **post_kernel.LAUNCHES, **tristream.LAUNCHES}
+    """The port's kernel launches since ``reset_launches``, by kernel."""
+    from buas_pathtracer_tpu_torch.utils import trace
+    return {k: n - _LAUNCH_BASE.get(k, 0)
+            for k, n in trace.launch_totals().items()}
 
 
 def run_stress(dev, card, report):
@@ -1191,15 +1196,13 @@ def time_frames(ps, scene, dev, n, first, w=1920, h=1080, settings=None,
 
 
 def bounce_shape(fn):
-    """Run ``fn()`` with the advanced integrator's bounce log on: a list of
-    (bounce, lanes, live lanes)."""
-    from buas_pathtracer_tpu_torch.integrators import advanced
-    advanced.BOUNCE_LOG = []
-    try:
+    """Run ``fn()`` in a frame record of its own: the (bounce, lanes, live
+    lanes) of every bounce of it and of the frames it renders."""
+    from buas_pathtracer_tpu_torch.utils import trace
+    with trace.frame() as rec:
+        first = rec.seq
         fn()
-        return list(advanced.BOUNCE_LOG)
-    finally:
-        advanced.BOUNCE_LOG = None
+    return [b for r in trace.records() if r.seq >= first for b in r.bounces]
 
 
 def wide_wave_records(ps, waves, wave_calls, launches, card, report, tag,

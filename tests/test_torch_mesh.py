@@ -30,10 +30,10 @@ from buas_pathtracer_tpu.runtime.render import render as jrender
 from buas_pathtracer_tpu_torch.core import vec as tvec
 from buas_pathtracer_tpu_torch.models import scenes as tscenes
 from buas_pathtracer_tpu_torch.ops import filters as tfilters
-from buas_pathtracer_tpu_torch.ops import packet as tpacket
 from buas_pathtracer_tpu_torch.parallel import mesh as tmesh
 from buas_pathtracer_tpu_torch.runtime import film as tfilm
 from buas_pathtracer_tpu_torch.runtime.render import render_frame
+from buas_pathtracer_tpu_torch.utils import trace
 from buas_pathtracer_tpu_torch.utils.procgen import icosphere
 from buas_pathtracer_tpu.ops import filters as jfilters
 from test_torch_render import assert_image_close
@@ -76,10 +76,10 @@ def halo_input(r, hl):
 
 def _render_counted(m, *args, **kwargs):
     """``render_frames`` on one rank with the walks' launches it made."""
-    for k in tpacket.LAUNCHES:
-        tpacket.LAUNCHES[k] = 0
+    before = trace.launch_totals()
     res = tmesh.render_frames(m, *args, **kwargs)
-    res["launches"] = dict(tpacket.LAUNCHES)
+    res["launches"] = {k: n - before[k]
+                       for k, n in trace.launch_totals().items()}
     return res
 
 

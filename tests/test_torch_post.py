@@ -18,6 +18,7 @@ from buas_pathtracer_tpu.runtime import post as jpost
 from buas_pathtracer_tpu_torch.models.scene import PostProcessSettings as TPost
 from buas_pathtracer_tpu_torch.ops import post_kernel
 from buas_pathtracer_tpu_torch.runtime import post as tpost
+from buas_pathtracer_tpu_torch.utils import trace
 
 SETTINGS = [
     dict(),
@@ -74,10 +75,10 @@ def test_post_kernel_matches_plain_on_card(kw):
         pytest.skip("needs a CUDA card")
     a = torch.from_numpy(_accum(1080, 1920)).cuda()
     tile = tpost.dither_tile(a.device)
-    before = post_kernel.LAUNCHES["post_rgba8"]
+    before = trace.launch_totals()["post_rgba8"]
     k = post_kernel.post_rgba8(a, tile, TPost(**kw))
     p = post_kernel.post_rgba8_plain(a, tile, TPost(**kw))
-    assert post_kernel.LAUNCHES["post_rgba8"] == before + 1
+    assert trace.launch_totals()["post_rgba8"] == before + 1
     diff = (k.to(torch.int16) - p.to(torch.int16)).abs()
     assert int(diff.max()) <= 1
     assert float((diff == 0).float().mean()) >= 0.9999
@@ -110,12 +111,12 @@ def test_post_kernel_odd_widths_on_card(kw, h, w):
     big[:h, :w] = flat.reshape(h, w, 4)
     small = torch.from_numpy(np.ascontiguousarray(big[:h, :w])).cuda()
     tile = tpost.dither_tile(small.device)
-    before = post_kernel.LAUNCHES["post_rgba8"]
+    before = trace.launch_totals()["post_rgba8"]
     k = post_kernel.post_rgba8(small, tile, TPost(**kw))
     k_big = post_kernel.post_rgba8(torch.from_numpy(big).cuda(), tile,
                                    TPost(**kw))
     p = post_kernel.post_rgba8_plain(small, tile, TPost(**kw))
-    assert post_kernel.LAUNCHES["post_rgba8"] == before + 2
+    assert trace.launch_totals()["post_rgba8"] == before + 2
     assert torch.equal(k, k_big[:h, :w])
     diff = (k.to(torch.int16) - p.to(torch.int16)).abs()
     assert int(diff.max()) <= 1
@@ -137,10 +138,10 @@ def test_post_kernel_needs_float4_alignment():
     accum = torch.zeros(4 * 4 * 4 + 1, device="cuda")[1:].view(4, 4, 4)
     tile = tpost.dither_tile(accum.device)
     assert accum.data_ptr() % 16 and accum.is_contiguous()
-    before = post_kernel.LAUNCHES["post_rgba8"]
+    before = trace.launch_totals()["post_rgba8"]
     with pytest.raises(ValueError, match="aligned"):
         post_kernel.post_rgba8(accum, tile, TPost())
-    assert post_kernel.LAUNCHES["post_rgba8"] == before
+    assert trace.launch_totals()["post_rgba8"] == before
 
 
 # ---------------------------------------------------------------------------

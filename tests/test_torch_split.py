@@ -35,6 +35,7 @@ from buas_pathtracer_tpu_torch.models.scene import from_jax_arrays
 from buas_pathtracer_tpu_torch.models.scenes import build_stress_scene
 from buas_pathtracer_tpu_torch.ops import packet, wide_bvh
 from buas_pathtracer_tpu_torch.runtime.render import render as trender
+from buas_pathtracer_tpu_torch.utils import trace
 from buas_pathtracer_tpu_torch.utils.procgen import icosphere as tico
 from test_torch_render import GOLDEN_DIR, assert_image_close
 from test_torch_scene import scene_mesh
@@ -314,10 +315,10 @@ def test_split_kernel_matches_plain_on_card(packed, card, kind, n,
             torch.from_numpy(t0).to(card), torch.from_numpy(ign).to(card),
             occlusion)
     key = "split_occlusion" if occlusion else "split_closest"
-    before = packet.LAUNCHES[key]
+    before = trace.launch_totals()[key]
     out = packet.split_traverse(res, leaf, tps.wide_depth, *args)
     ref = packet.split_traverse_plain(res, leaf, tps.wide_depth, *args)
-    assert packet.LAUNCHES[key] == before + 1
+    assert trace.launch_totals()[key] == before + 1
     for a, b in zip(out, ref):
         assert torch.equal(a.cpu(), b.cpu().to(a.dtype))
 

@@ -30,6 +30,7 @@ from buas_pathtracer_tpu_torch.models import camera as tcm
 from buas_pathtracer_tpu_torch.models.scene import Scene as TScene
 from buas_pathtracer_tpu_torch.models.scene import SceneSettings as TSettings
 from buas_pathtracer_tpu_torch.ops import traverse_wide
+from buas_pathtracer_tpu_torch.utils import trace
 
 W, H = 96, 48
 N = W * H
@@ -100,9 +101,9 @@ def single_loop_image():
 def test_staged_bit_identical(single_loop_image, monkeypatch, stages):
     """1024 lanes breaks late, 3072 at bounce 1, "3,1" chains two stages."""
     ref_img, ref_stats = single_loop_image
-    log = []
-    monkeypatch.setattr(tadv, "BOUNCE_LOG", log)
-    img, stats = _render(monkeypatch, True, stages)
+    with trace.frame() as rec:
+        img, stats = _render(monkeypatch, True, stages)
+    log = rec.bounces  # (bounce, lanes it ran at, live lanes)
     np.testing.assert_array_equal(img, ref_img)
     assert stats[0] == ref_stats[0]
     # node visits shrink: prefiltered lanes skip the walk
@@ -160,9 +161,9 @@ def test_staged_split_tables_bit_identical(single_loop_image,
     """The staged loop on the split tables (the big scenes' walk): equal to
     the single loop on the same tables, and that to the unified table's."""
     ref_img, ref_stats = split_single_loop_images[env]
-    log = []
-    monkeypatch.setattr(tadv, "BOUNCE_LOG", log)
-    img, stats = _render(monkeypatch, True, stages, env=env, split=True)
+    with trace.frame() as rec:
+        img, stats = _render(monkeypatch, True, stages, env=env, split=True)
+    log = rec.bounces
     np.testing.assert_array_equal(img, ref_img)
     assert stats[0] == ref_stats[0]
     assert 0 < stats[1] <= ref_stats[1]

@@ -25,6 +25,7 @@ from buas_pathtracer_tpu_torch.core.vec import Vec3 as TV
 from buas_pathtracer_tpu_torch.models.scene import from_jax_arrays
 from buas_pathtracer_tpu_torch.ops import packet
 from buas_pathtracer_tpu_torch.ops import traverse_wide as ttw
+from buas_pathtracer_tpu_torch.utils import trace
 from test_torch_walk import CARD_EDGES, check_edge_on_card
 
 
@@ -269,10 +270,11 @@ def test_kernel_matches_plain_on_card(scenes, card, kind, n, occlusion):
     args = (TV(*(c.to(card) for c in _tv(o))), TV(*(c.to(card) for c in _tv(d))),
             torch.from_numpy(t0).to(card),
             torch.full((t0.size,), -1, dtype=torch.int32, device=card))
-    before = packet.LAUNCHES["occlusion" if occlusion else "closest"]
+    key = "occlusion" if occlusion else "closest"
+    before = trace.launch_totals()[key]
     out = packet.wide_traverse(rows, tps.wide_depth, *args, occlusion)
     ref = packet.wide_traverse_plain(rows, tps.wide_depth, *args, occlusion)
-    assert packet.LAUNCHES["occlusion" if occlusion else "closest"] == before + 1
+    assert trace.launch_totals()[key] == before + 1
     for a, b in zip(out[:5], ref[:5]):
         assert torch.equal(a.cpu(), b.cpu().to(a.dtype))
 

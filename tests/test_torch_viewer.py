@@ -99,6 +99,20 @@ class TestViewerEndpoints:
         assert s["rays"] > 0 and s["frame_ms"] > 0
         assert s["title"].startswith(f"{s['spp']} spp, fps: ")
 
+    def test_state_has_the_last_frame_record(self, viewer):
+        state, base = viewer
+        assert wait_for(lambda: json.loads(get(base, "/state")[1])["spp"]
+                        >= 2), "render loop never produced a frame"
+        s = json.loads(get(base, "/state")[1])
+        live = s["live_lanes"]
+        assert live and live[0] == W * H
+        assert all(isinstance(n, int) and 0 < n <= W * H for n in live)
+        assert live == sorted(live, reverse=True)
+        # camera_on's 19 scalars, the sampler's table, a live count a
+        # bounce, the stats, the dither tile and the image
+        assert s["waits"] >= 19 + 1 + len(live) + 1 + 2
+        assert s["wait_ms"] >= 0.0 and s["host_issue_ms"] > 0.0
+
     def test_controls_move_look_walk_focus(self, viewer):
         state, base = viewer
         cam = state.renderer.new_camera

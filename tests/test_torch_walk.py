@@ -33,6 +33,7 @@ from buas_pathtracer_tpu_torch.core.vec import Vec3 as TV
 from buas_pathtracer_tpu_torch.models.mesh import Mesh
 from buas_pathtracer_tpu_torch.models.scene import Scene
 from buas_pathtracer_tpu_torch.ops import cuda_lib, packet, wide_bvh
+from buas_pathtracer_tpu_torch.utils import trace
 from buas_pathtracer_tpu_torch.utils.procgen import icosphere
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -393,10 +394,10 @@ def check_edge_on_card(edge, split, occlusion, card):
         tabs = (ps.wide_rows.to(card), ps.wide_depth)
         key = "occlusion" if occlusion else "closest"
         kernel, plain = packet.wide_traverse, packet.wide_traverse_plain
-    before = packet.LAUNCHES[key]
+    before = trace.launch_totals()[key]
     out = kernel(*tabs, *args)
     ref = plain(*tabs, *args)
     torch.cuda.synchronize()
-    assert packet.LAUNCHES[key] == before + 1
+    assert trace.launch_totals()[key] == before + 1
     for a, b in zip(out, ref):
         assert torch.equal(a.cpu(), b.cpu().to(a.dtype))
