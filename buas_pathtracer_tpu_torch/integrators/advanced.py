@@ -28,11 +28,21 @@ of 1024 lanes.  The JAX package also re-sorts the stage after every bounce;
 the port sorts at the stage entry only, since on the H100 a key sort and
 its gathers cost more than the walk gains from the order (PERF.md).
 
-Staging cuts the frame's device time on the H100 by more than half, but
-the frame is bound by the host's kernel launches, which staging does not
-reduce, and staged and single-loop frame times lie within their spread.
-The single loop, the conservative choice, is the default
-(``BUAS_TWO_PHASE=1`` stages; PERF.md).
+A bounce is the closest-hit walk, the shading up to next-event
+estimation (``_shade_hit``), NEE's samples and shadow walk (``_nee``) and
+the rest of the shading (``_shade_next``).  On the card the two shading
+halves are the CUDA kernels ``shade_hit`` and ``shade_next``
+(``ops/shade_kernel.py``, ``csrc/shade.cu``), which update the loop's
+state in place (the state is the loop's own from its entry: the caller's
+rays and sampler are not written); ``_shade_hit_plain`` and
+``_shade_next_plain`` are their plain version, which CPU tensors take.
+
+The kernels took ~4,300 launches off a bench frame's ~9,300.  Before them
+the frame was bound by the host's launches: staging cut the device time by
+more than half and the frame time not at all.  Now the host's issue time
+and the device's busy time are about equal (76 and 92 ms of a ~105 ms
+1080p bench frame on the H100; PERF.md), and whether staging pays is open.
+The single loop stays the default (``BUAS_TWO_PHASE=1`` stages).
 """
 
 from __future__ import annotations
@@ -45,9 +55,9 @@ import torch
 from ..core import rng
 from ..core import sampler as smp
 from ..core.vec import (EPSILON, PI, Vec3, dot, exp as vexp, full_like, lerp,
-                        max3, normalize, reflect, v3, where as vwhere, zeros)
+                        max3, normalize, reflect, v3, where as vwhere)
 from ..models.scene import PackedScene, SceneSettings
-from ..ops import dispatch, envmap, traverse_wide
+from ..ops import dispatch, envmap, shade_kernel, traverse_wide
 from ..ops.shading import (cbrt, evaluate_checker, fresnel_dielectric,
                            map_to_cosine_weighted_hemisphere,
                            map_to_hemisphere, refract, sample_on_unit_sphere)
@@ -59,11 +69,12 @@ from .common import (has_env, light_pick_pdf, light_radius_of_prim,
 
 STACK_DEPTH = 8  # reference uses 64 (integrators.cpp:602)
 
-# BUAS_TWO_PHASE and BUAS_PHASE_BLOCKS (x1024 lanes) when unset.  On the
-# H100 the frame is host-bound, and the single loop and every staged width
-# measured within the frames' spread across the bench, stress and hero
-# frames: the single loop, the conservative choice, is the default; staged,
-# the widths that left the card the least device time (PERF.md)
+# BUAS_TWO_PHASE and BUAS_PHASE_BLOCKS (x1024 lanes) when unset.  While
+# the H100's frame was host-bound (before the shading kernels), the single
+# loop and every staged width measured within the frames' spread across
+# the bench, stress and hero frames: the single loop, the conservative
+# choice, is the default; staged, the widths that left the card the least
+# device time (PERF.md; to be measured again, ROADMAP.md)
 DEFAULT_TWO_PHASE = "0"
 DEFAULT_PHASE_BLOCKS = "1024,256"
 
@@ -192,11 +203,64 @@ def _shadow(ps: PackedScene, queries):
     return list(torch.split(occ, [q[2].shape[0] for q in queries]))
 
 
-def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
-    """One bounce of every lane; returns the new state and stats.  Lanes
-    that do not walk (dead, or prefiltered at a stage's entry) pass through
-    the traversal with max_t = -1; the prefiltered ones shade as sky
-    misses."""
+class _Shade(NamedTuple):
+    """What the hit's shading leaves for the NEE span and ``_shade_next``:
+    the oriented normal, the lanes NEE serves (found, not emissive,
+    diffuse), and the rest of the branch data: the plain version's values
+    (``_Branches``), or the kernel's scratch (``ops/shade_kernel.py``)."""
+
+    N: Vec3
+    nee_lanes: torch.Tensor
+    rest: object
+
+
+class _Branches(NamedTuple):
+    """The plain version's branch values between the two halves."""
+
+    p: Vec3
+    found: torch.Tensor
+    t_emissive: torch.Tensor
+    do_reflect: torch.Tensor
+    do_refract: torch.Tensor
+    do_diffuse: torch.Tensor
+    refl_o: Vec3
+    refl_d: Vec3
+    refl_tint: Vec3
+    refr_o: Vec3
+    refr_d: Vec3
+    brdf: Vec3
+
+
+class _LightNee(NamedTuple):
+    """The light sample and its shadow query, as ``_shade_next`` reads
+    them (``emission`` for the plain version, ``slot`` for the kernel)."""
+
+    facing: torch.Tensor
+    occluded: torch.Tensor
+    nl_dot_l: torch.Tensor
+    area: torch.Tensor
+    dist_sq: torch.Tensor
+    rcp_pdf: torch.Tensor
+    n_dot_l: torch.Tensor
+    slot: torch.Tensor
+    emission: Vec3
+
+
+class _EnvNee(NamedTuple):
+    facing: torch.Tensor
+    occluded: torch.Tensor
+    n_dot_e: torch.Tensor
+    pdf: torch.Tensor
+    radiance: Vec3
+
+
+def _shade_hit_plain(ps: PackedScene, f: _Flags, st: _State, hit, stats,
+                     bounce: int):
+    """The shading of a bounce up to next-event estimation: the sky of the
+    rays that missed, orientation and the stack's materials, Beer's law,
+    emission and its MIS weight, Fresnel and the REFLECTANCE draw, the
+    fuzz draws, the reflect and refract branches with the stack's push and
+    pop, and the diffuse BRDF.  Returns (state, stats, _Shade)."""
     alive, o, d, throughput, total, s = (st.alive, st.o, st.d, st.tp,
                                          st.total, st.s)
     stack, stack_at, is_specular, prev_n = (st.stack, st.stack_at,
@@ -206,9 +270,6 @@ def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
     lane = torch.arange(STACK_DEPTH, device=dev)[:, None]
     strategy = f.strategy
 
-    with trace.span("pt.intersect"):
-        hit = traverse_wide.intersect_scene(
-            ps, o, d, max_t=torch.where(st.live_r, BIG_T, -1.0))
     found = hit.valid & alive
     missed = ~hit.valid & alive
     stats = stats + torch.stack([alive.sum().to(torch.float32),
@@ -333,46 +394,82 @@ def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
     albedo = evaluate_checker(albedo_t, Vec3(mtT[9], mtT[10], mtT[11]),
                               (t_code & 0x2) != 0, hit.p)
     brdf = albedo * (1.0 / PI)
+    st = st._replace(tp=throughput, total=total, s=s, stack=stack,
+                     stack_at=stack_at)
+    rest = _Branches(hit.p, found, t_emissive, do_reflect, do_refract,
+                     do_diffuse, refl_o, refl_d, refl_tint, refr_o, refr_d,
+                     brdf)
+    return st, stats, _Shade(N, do_diffuse & found & ~t_emissive, rest)
 
-    # ---- next-event estimation: light and env samples, then their
-    # shadow queries (reference intersect_shadow_ray, intersection.cpp:
-    # 600-604) ----
-    with trace.span("pt.nee"):
-        queries = []
-        if f.nee:
-            s, lp_u = smp.sample_1d(
-                s, strategy, smp.SampleDimension.LIGHT_SELECTION, bounce)
-            slot, light_rcp_pdf = pick_random_light_slot(ps, lp_u, hit.p,
-                                                         f.is_lights)
-            s, dl_u, dl_v = smp.sample_2d(
-                s, strategy, smp.SampleDimension.DIRECT_LIGHTING, bounce)
-            lT = light_rows(ps, slot)
-            ls = random_point_on_light_rows(lT, dl_u, dl_v, hit.p)
-            n_dot_l = dot(N, ls.L)
-            nl_dot_l = -dot(ls.Nl, ls.L)
-            facing = (n_dot_l > 0.0) & (nl_dot_l > 0.0) & do_diffuse \
-                & found & ~t_emissive
-            queries.append((hit.p + ls.L * EPSILON, ls.L,
-                            torch.where(facing, ls.dist - 2.0 * EPSILON,
-                                        -1.0),
-                            slot_to_prim(ps, slot)))
-        if f.env_nee:
-            s, e_u, e_v = smp.sample_2d(
-                s, strategy, smp.SampleDimension.ENV_LIGHTING, bounce)
-            d_e, pdf_e, rad_e = envmap.sample_env_alias(
-                ps.env_alias_prob, ps.env_alias_idx, ps.env_pdf_num,
-                ps.env_pixels, e_u, e_v)
-            n_dot_e = dot(N, d_e)
-            facing_e = (n_dot_e > 0.0) & do_diffuse & found & ~t_emissive
-            queries.append((hit.p + d_e * EPSILON, d_e,
-                            torch.where(facing_e, BIG_T, -1.0),
-                            torch.full((n,), -1, dtype=torch.int64,
-                                       device=dev)))
-        occ = _shadow(ps, queries) if queries else []
+
+def _nee(ps: PackedScene, f: _Flags, s: smp.Sampler, p: Vec3, N: Vec3,
+         lanes, bounce: int):
+    """Next-event estimation's samples (light, then environment) and their
+    shadow queries (reference intersect_shadow_ray, intersection.cpp:
+    600-604), for the lanes ``lanes``.  Returns (sampler, _LightNee or
+    None, _EnvNee or None)."""
+    n = lanes.shape[0]
+    dev = lanes.device
+    strategy = f.strategy
+    queries = []
+    if f.nee:
+        s, lp_u = smp.sample_1d(
+            s, strategy, smp.SampleDimension.LIGHT_SELECTION, bounce)
+        slot, light_rcp_pdf = pick_random_light_slot(ps, lp_u, p,
+                                                     f.is_lights)
+        s, dl_u, dl_v = smp.sample_2d(
+            s, strategy, smp.SampleDimension.DIRECT_LIGHTING, bounce)
+        lT = light_rows(ps, slot)
+        ls = random_point_on_light_rows(lT, dl_u, dl_v, p)
+        n_dot_l = dot(N, ls.L)
+        nl_dot_l = -dot(ls.Nl, ls.L)
+        facing = (n_dot_l > 0.0) & (nl_dot_l > 0.0) & lanes
+        queries.append((p + ls.L * EPSILON, ls.L,
+                        torch.where(facing, ls.dist - 2.0 * EPSILON, -1.0),
+                        slot_to_prim(ps, slot)))
+    if f.env_nee:
+        s, e_u, e_v = smp.sample_2d(
+            s, strategy, smp.SampleDimension.ENV_LIGHTING, bounce)
+        d_e, pdf_e, rad_e = envmap.sample_env_alias(
+            ps.env_alias_prob, ps.env_alias_idx, ps.env_pdf_num,
+            ps.env_pixels, e_u, e_v)
+        n_dot_e = dot(N, d_e)
+        facing_e = (n_dot_e > 0.0) & lanes
+        queries.append((p + d_e * EPSILON, d_e,
+                        torch.where(facing_e, BIG_T, -1.0),
+                        torch.full((n,), -1, dtype=torch.int64, device=dev)))
+    occ = _shadow(ps, queries) if queries else []
+    light = env = None
+    if f.nee:
+        light = _LightNee(facing, occ[0], nl_dot_l, ls.A, ls.dist_sq,
+                          light_rcp_pdf, n_dot_l, slot,
+                          Vec3(lT[13], lT[14], lT[15]))
+    if f.env_nee:
+        env = _EnvNee(facing_e, occ[-1], n_dot_e, pdf_e, rad_e)
+    return s, light, env
+
+
+def _shade_next_plain(ps: PackedScene, f: _Flags, st: _State, sh: _Shade,
+                      light, env, stats, bounce: int):
+    """The shading of a bounce after next-event estimation: the light and
+    environment contributions, the INDIRECT_LIGHTING draw and its
+    hemisphere, the branches' merge, Russian roulette and the new state.
+    ``st.s`` is the sampler that NEE left.  Returns (state, stats)."""
+    o, d, throughput, total, s = st.o, st.d, st.tp, st.total, st.s
+    is_specular, prev_n = st.is_spec, st.prev_n
+    dev = o.x.device
+    strategy = f.strategy
+    N = sh.N
+    (p, found, t_emissive, do_reflect, do_refract, do_diffuse, refl_o,
+     refl_d, refl_tint, refr_o, refr_d, brdf) = sh.rest
 
     if f.nee:
-        visible = facing & ~occ[0]
-        solid_angle = (nl_dot_l * ls.A) / torch.clamp(ls.dist_sq, min=1e-12)
+        facing, nl_dot_l, n_dot_l = light.facing, light.nl_dot_l, \
+            light.n_dot_l
+        light_rcp_pdf = light.rcp_pdf
+        visible = facing & ~light.occluded
+        solid_angle = (nl_dot_l * light.area) / torch.clamp(light.dist_sq,
+                                                            min=1e-12)
         # light_rcp_pdf is the PICK probability (integrators.cpp:163,175)
         light_pdf_sa = light_rcp_pdf / torch.clamp(solid_angle, min=1e-12)
         brdf_pdf = (n_dot_l / PI) if f.is_diffuse \
@@ -384,7 +481,7 @@ def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
             pdf = light_pdf_sa + brdf_pdf
         else:
             pdf = light_pdf_sa
-        lemit = Vec3(lT[13], lT[14], lT[15])
+        lemit = light.emission
         contrib = throughput * brdf * lemit * (
             n_dot_l / torch.clamp(pdf, min=1e-30))
         total = vwhere(visible, total + contrib, total)
@@ -394,7 +491,9 @@ def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
 
     # ---- env-map NEE shading ----
     if f.env_nee:
-        visible_e = facing_e & ~occ[-1]
+        facing_e, n_dot_e, pdf_e, rad_e = (env.facing, env.n_dot_e, env.pdf,
+                                           env.radiance)
+        visible_e = facing_e & ~env.occluded
         if f.use_mis:
             brdf_pdf_e = (n_dot_e / PI) if f.is_diffuse \
                 else (1.0 / (2.0 * PI))
@@ -418,7 +517,7 @@ def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
         R = map_to_hemisphere(N, il_u, il_v)
         c = 2.0 * PI * dot(N, R)
         diff_tp_scale = Vec3(c, c, c)
-    diff_o = hit.p + N * EPSILON
+    diff_o = p + N * EPSILON
 
     # ---- merge branches ----
     new_specular = ~do_diffuse
@@ -442,10 +541,46 @@ def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
 
     st = st._replace(
         alive=cont, o=vwhere(cont, new_o, o), d=vwhere(cont, new_d, d),
-        tp=throughput, total=total, s=s, stack=stack, stack_at=stack_at,
+        tp=throughput, total=total, s=s,
         is_spec=torch.where(cont, new_specular, is_specular),
         prev_n=vwhere(cont, N, prev_n), live_r=cont)
     return st, stats
+
+
+def _shade_hit(ps: PackedScene, f: _Flags, st: _State, hit, stats,
+               bounce: int):
+    """``_shade_hit_plain`` on CPU tensors; on the card the ``shade_hit``
+    kernel, which updates the loop's state and ``stats`` in place."""
+    if st.alive.device.type != "cuda":
+        return _shade_hit_plain(ps, f, st, hit, stats, bounce)
+    scratch = shade_kernel.shade_hit(ps, f, st, hit, stats, bounce)
+    return st, stats, _Shade(shade_kernel.normal(scratch),
+                             shade_kernel.nee_lanes(scratch), scratch)
+
+
+def _shade_next(ps: PackedScene, f: _Flags, st: _State, sh: _Shade, light,
+                env, stats, bounce: int):
+    """``_shade_next_plain`` on CPU tensors; on the card the ``shade_next``
+    kernel, in place as ``_shade_hit``."""
+    if st.alive.device.type != "cuda":
+        return _shade_next_plain(ps, f, st, sh, light, env, stats, bounce)
+    shade_kernel.shade_next(ps, f, st, sh.rest, light, env, stats, bounce)
+    return st._replace(live_r=st.alive), stats
+
+
+def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
+    """One bounce of every lane; returns the new state and stats.  Lanes
+    that do not walk (dead, or prefiltered at a stage's entry) pass through
+    the traversal with max_t = -1; the prefiltered ones shade as sky
+    misses."""
+    with trace.span("pt.intersect"):
+        hit = traverse_wide.intersect_scene(
+            ps, st.o, st.d, max_t=torch.where(st.live_r, BIG_T, -1.0))
+    st, stats, sh = _shade_hit(ps, f, st, hit, stats, bounce)
+    with trace.span("pt.nee"):
+        s, light, env = _nee(ps, f, st.s, hit.p, sh.N, sh.nee_lanes, bounce)
+    return _shade_next(ps, f, st._replace(s=s), sh, light, env, stats,
+                       bounce)
 
 
 def _loop(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int,
@@ -504,6 +639,26 @@ def _run_stage(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int,
     return Vec3(out[0], out[1], out[2]), stats
 
 
+def _entry_state(ray_o: Vec3, ray_d: Vec3, sampler: smp.Sampler) -> _State:
+    """The loop's own state at its entry, one tensor a field (alive and
+    the specular flag too): the kernels update it in place, never the
+    caller's rays or sampler."""
+    n = ray_o.x.shape[0]
+    dev = ray_o.x.device
+    fs = torch.zeros((15, n), dtype=torch.float32, device=dev)
+    torch.stack([*ray_o, *ray_d], out=fs[:6])
+    fs[6:9] = 1.0
+    v = [Vec3(fs[3 * k], fs[3 * k + 1], fs[3 * k + 2]) for k in range(5)]
+    ints = torch.zeros((STACK_DEPTH + 1, n), dtype=torch.int64, device=dev)
+    flags = torch.ones((2, n), dtype=torch.bool, device=dev)
+    return _State(
+        alive=flags[0], o=v[0], d=v[1], tp=v[2], total=v[3],
+        s=sampler._replace(state=sampler.state.clone()),
+        stack=ints[1:], stack_at=ints[0],
+        is_spec=flags[1],  # is_specular_bounce starts true (:615)
+        prev_n=v[4], live_r=flags[0])
+
+
 def advanced(ps: PackedScene, settings: SceneSettings, sampler: smp.Sampler,
              ray_o: Vec3, ray_d: Vec3, n_lights: int = 0):
     """Returns (color Vec3, sampler, stats (3,) float32 [rays, node visits,
@@ -515,14 +670,7 @@ def advanced(ps: PackedScene, settings: SceneSettings, sampler: smp.Sampler,
     staged = two_phase(settings, sampler, n)
     widths = stage_widths(n) if staged else []
 
-    ones = torch.ones(n, dtype=torch.bool, device=dev)
-    st = _State(
-        alive=ones, o=ray_o, d=ray_d, tp=full_like(ray_o, 1.0),
-        total=zeros(n, dev), s=sampler,
-        stack=torch.zeros((STACK_DEPTH, n), dtype=torch.int64, device=dev),
-        stack_at=torch.zeros(n, dtype=torch.int64, device=dev),
-        is_spec=ones,  # is_specular_bounce starts true (:615)
-        prev_n=zeros(n, dev), live_r=ones)
+    st = _entry_state(ray_o, ray_d, sampler)
     stats = torch.zeros(3, dtype=torch.float32, device=dev)
     st, stats, bounce = _loop(ps, f, st, stats, 0,
                               widths[0] if staged else None)

@@ -96,7 +96,11 @@ def light_pick_pdf(ps: PackedScene, I: Vec3, hit_prim, importance: bool):
     if not importance or L == 1:
         return torch.full_like(I.x, 1.0 / L)
     pdfs = _light_pdfs(ps, I)
-    total = pdfs.sum(dim=-1)
+    # the pick's running sum, one light at a time: one order of addition,
+    # which the shade_hit kernel keeps too
+    total = pdfs[:, 0]
+    for l in range(1, L):
+        total = total + pdfs[:, l]
     sel = (ps.light_prim[None, :] == hit_prim[:, None]).to(torch.float32)
     return (pdfs * sel).sum(dim=-1) / torch.clamp(total, min=1e-30)
 

@@ -33,7 +33,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
 SOURCES = ("wide_traverse.cu", "split_traverse.cu", "tristream.cu",
-           "post.cu")
+           "post.cu", "shade.cu")
 # -fmad=false: no fused multiply-add, so the kernels round like the unfused
 # PyTorch ops of their plain versions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -189,6 +189,11 @@ def load():
         lib.post_rgba8_launch.argtypes = [
             vp, vp, vp, ci, ci, cf, cf, cf, cf, cf, cf, ci, ci, ci, ci, ci,
             vp]
+        for name in ("shade_hit", "shade_next"):
+            getattr(lib, f"{name}_launch").restype = ci
+            getattr(lib, f"{name}_launch").argtypes = [vp, vp]
+        lib.shade_args_size.restype = ci
+        lib.shade_args_size.argtypes = []
         _lib = lib
         return _lib
 

@@ -54,7 +54,8 @@ the device time of the kernels launched inside it
     pt.display > pt.wait.dither_tile, pt.post, pt.wait.readback
 
 A wait is a ``pt.wait.<site>`` span of its own.  ``pt.bounce`` less its
-child spans is the shading.
+child spans is the shading (on the card the ``shade_hit`` and
+``shade_next`` kernels, one launch each a bounce).
 
 **Set-up phases** (``phase``, seconds summed over the process, ``phases``):
 ``kernel_load`` (the kernel library and the native host library, loaded or
@@ -80,7 +81,7 @@ RING = 1024  # frame records kept
 _RANGE = torch._C._profiler._RecordFunctionFast
 # the port's own kernels, by launch counter
 KERNELS = ("closest", "occlusion", "split_closest", "split_occlusion",
-           "post_rgba8", "tristream_closest")
+           "post_rgba8", "tristream_closest", "shade_hit", "shade_next")
 
 
 class _Null:

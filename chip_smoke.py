@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --turns    # the measurements behind the defaults
+    python3 chip_smoke.py --shade    # the shading kernels alone ([16])
 
 Builds the port's CUDA kernels from ``buas_pathtracer_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card, renders
 small frames against the repository's golden images, renders the bench
 frame (``bench.py``'s scene: 1920x1080, 1 spp, 8 bounces, Advanced
 Pathtracer) through the kernels, times each kernel at the shapes that frame
-gives it, then does the same for the big-scene path: the stress frame
+gives it, and the bounce's two shading kernels at bounces 0 and 1 of that
+frame against their plain version ([16]; ``--shade`` runs only these after
+the build), then does the same for the big-scene path: the stress frame
 (``BENCH_SCENE=stress``: 655,360 triangles, 1920x1080, 1 spp, 6 bounces)
 through the split-table walk, and the dense triangle-stream entry point on
 the bench scene.  Then the integrator layer: 64x64 staged frames (two
@@ -782,6 +785,172 @@ def read_launches():
     from buas_pathtracer_tpu_torch.utils import trace
     return {k: n - _LAUNCH_BASE.get(k, 0)
             for k, n in trace.launch_totals().items()}
+
+
+# bytes one lane of each class moves through the shading kernels, read and
+# written (csrc/shade.cu's note; the material, light and environment rows
+# come from cache and are not counted).  shade_hit: a dead lane reads its
+# alive flag and writes two codes; a live lane that missed reads its ray,
+# throughput, total, flags, RNG state and hit id and writes its total, RNG
+# state and codes; a lane with a hit also reads the hit record, stack index
+# and two stack entries and writes its throughput and normal, then its
+# branch's scratch; a push writes one stack entry and the index.  At bounce
+# 0 each live lane reads its first-bounce base pair.  shade_next: a dead
+# lane reads its flag; a path that ends reads its code, RNG state and
+# throughput; a path that goes on reads its normal and its branch's scratch
+# and writes its ray, normal, throughput, flag and RNG state; a lane whose
+# light sample faced it reads NEE's terms and updates its total.
+SHADE_HIT_BYTES = dict(dead=3, missed=76, found=160, reflect=36, refract=24,
+                       diffuse=12, push=16, base=8)
+SHADE_NEXT_BYTES = dict(dead=1, ends=31, reflect=127, refract=115,
+                        diffuse=116, facing=53, base=16)
+
+
+def clone_state(st):
+    """A deep copy of an ``advanced._State``, one tensor a field."""
+    from buas_pathtracer_tpu_torch.core.vec import Vec3
+
+    def v(x):
+        return Vec3(*(c.clone() for c in x))
+    return st._replace(
+        alive=st.alive.clone(), o=v(st.o), d=v(st.d), tp=v(st.tp),
+        total=v(st.total), s=st.s._replace(state=st.s.state.clone()),
+        stack=st.stack.clone(), stack_at=st.stack_at.clone(),
+        is_spec=st.is_spec.clone(), prev_n=v(st.prev_n),
+        live_r=st.live_r.clone())
+
+
+def states_equal(a, b, entry, what):
+    """Raise unless the two states are equal bit for bit (the RNG state on
+    the lanes alive at the bounce's entry)."""
+    import torch
+    for name in ("alive", "stack", "stack_at", "is_spec"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"{what}: {name} differs")
+    if not torch.equal(a.s.state[entry], b.s.state[entry]):
+        raise AssertionError(f"{what}: the live lanes' RNG state differs")
+    for name in ("total", "tp", "o", "d", "prev_n"):
+        for c, x, y in zip("xyz", getattr(a, name), getattr(b, name)):
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"{what}: {name}.{c} differs in "
+                    f"{int((x != y).sum())} lanes")
+
+
+def run_shade(ps, scene, dev, card, report, W=1920, H=1080):
+    """[16] The shading kernels at the bench frame's shapes: the inputs of
+    bounces 0 and 1 recorded from a frame, each kernel held bit for bit to
+    the plain version, timed (its own device time under the profiler, and
+    CUDA events around the wrapper) beside the plain version's time and its
+    byte bound."""
+    import torch
+    from buas_pathtracer_tpu_torch.integrators import advanced as adv
+    from buas_pathtracer_tpu_torch.ops import shade_kernel
+    from buas_pathtracer_tpu_torch.runtime import film
+    from buas_pathtracer_tpu_torch.runtime.render import render_frame
+
+    inputs = {}
+    real_hit = adv._shade_hit
+
+    def record(ps_, f, st, hit, stats, bounce):
+        if bounce in (0, 1) and bounce not in inputs:
+            inputs[bounce] = (f, clone_state(st), hit, stats.clone())
+        return real_hit(ps_, f, st, hit, stats, bounce)
+
+    adv._shade_hit = record
+    try:
+        accum = film.new_accumulation_buffer(H, W, dev)
+        render_frame(ps, scene.settings, scene.camera, accum, 7, h=H, w=W,
+                     n_lights=scene.n_lights, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        adv._shade_hit = real_hit
+    records = []
+    for b in (0, 1):
+        f, st0, hit, stats0 = inputs[b]
+        n = int(st0.alive.shape[0])
+        entry = st0.alive.clone()
+        a = clone_state(st0)
+        a, sa, sha = adv._shade_hit_plain(ps, f, a, hit, stats0.clone(), b)
+        k = clone_state(st0)
+        sk = stats0.clone()
+        scratch = shade_kernel.shade_hit(ps, f, k, hit, sk, b)
+        states_equal(a, k, entry, f"[16] shade_hit bounce {b}")
+        lanes = sha.nee_lanes
+        if not (torch.equal(sa, sk) and torch.equal(
+                lanes, shade_kernel.nee_lanes(scratch)) and all(
+                torch.equal(x[lanes], y[lanes]) for x, y in zip(
+                    sha.N, shade_kernel.normal(scratch)))):
+            raise AssertionError(f"[16] shade_hit bounce {b}: stats, NEE "
+                                 f"lanes or normals differ")
+        after_hit, stats_hit = clone_state(k), sk.clone()
+        s, light, env = adv._nee(ps, f, a.s, hit.p, sha.N, lanes, b)
+        a_hit, sa_hit = a, sa.clone()
+        a2, sa = adv._shade_next_plain(ps, f, a._replace(s=s), sha, light,
+                                       env, sa, b)
+        k = k._replace(s=k.s._replace(state=s.state.clone()))
+        shade_kernel.shade_next(ps, f, k, scratch, light, env, sk, b)
+        states_equal(a2, k, entry, f"[16] shade_next bounce {b}")
+        if not torch.equal(sa, sk):
+            raise AssertionError(f"[16] shade_next bounce {b}: stats differ")
+
+        # the lanes by class, for the bytes each kernel moves
+        code = scratch[1][0]
+        live = int(entry.sum())
+        missed = int((entry & (hit.hit_id < 0)).sum())
+        counts = {c: int((entry & (code == v)).sum())
+                  for c, v in (("reflect", 1), ("refract", 2),
+                               ("diffuse", 3))}
+        push = int((after_hit.stack_at > st0.stack_at).sum())
+        base = live if b == 0 and f.strategy != 0 else 0
+        hb = SHADE_HIT_BYTES
+        hit_bytes = ((n - live) * hb["dead"] + missed * hb["missed"]
+                     + (live - missed) * hb["found"]
+                     + sum(counts[c] * hb[c] for c in counts)
+                     + push * hb["push"] + base * hb["base"])
+        facing = int(light.facing.sum()) if light is not None else 0
+        nb = SHADE_NEXT_BYTES
+        ends = live - sum(counts.values())
+        next_bytes = ((n - live) * nb["dead"] + ends * nb["ends"]
+                      + sum(counts[c] * nb[c] for c in counts)
+                      + facing * nb["facing"] + base * nb["base"])
+
+        def hit_fn():
+            return shade_kernel.shade_hit(ps, f, clone_state(st0), hit,
+                                          stats0.clone(), b)
+
+        def next_fn():
+            st = clone_state(after_hit)
+            return shade_kernel.shade_next(
+                ps, f, st._replace(s=st.s._replace(state=s.state.clone())),
+                scratch, light, env, stats_hit.clone(), b)
+
+        for name, fn, plain, nbytes in (
+                ("shade_hit", hit_fn, lambda: adv._shade_hit_plain(
+                    ps, f, st0, hit, stats0, b), hit_bytes),
+                ("shade_next", next_fn, lambda: adv._shade_next_plain(
+                    ps, f, a_hit._replace(s=s), sha, light, env, sa_hit, b),
+                 next_bytes)):
+            dev_ms = device_ms(fn, KERNEL_REPS, name)
+            if dev_ms is None:
+                raise AssertionError(f"the profiler recorded no {name}")
+            ms = cuda_ms(fn, KERNEL_REPS)
+            plain_ms = cuda_ms(plain, PLAIN_REPS)
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            log(f"[16] {name} bounce {b}: {n} lanes ({live} live, "
+                f"{missed} missed, branches {counts}): device time "
+                f"{dev_ms:.4f} ms, events {ms:.4f} ms (with the state's "
+                f"copy), plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+                f"({nbytes / 1e6:.1f} MB), equal to plain ({card})")
+            records.append(dict(
+                k=f"S{b}", name=f"{name} bounce {b}", route="cuda",
+                source="buas_pathtracer_tpu_torch/csrc/shade.cu",
+                replaces="no TPU kernel (XLA fuses the TPU's shading)",
+                lanes=n, live=live, parity="equal to plain (bit for bit)",
+                device_ms=dev_ms, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", bytes=nbytes,
+                **ptxas_fields(report, f"{name}_kernel")))
+    return records
 
 
 def run_stress(dev, card, report):
@@ -1755,6 +1924,8 @@ def launch_key(name):
         return "post_rgba8"
     if name.startswith("tristream"):
         return "tristream_closest"
+    if name.startswith("shade_"):
+        return name.split()[0]
     mode = "occlusion" if "occlusion" in name else "closest"
     return ("split_" if name.startswith("split") else "") + mode
 
@@ -2567,7 +2738,8 @@ def main(argv):
     for kname in ("wide_traverse_closest", "wide_traverse_occlusion",
                   "split_traverse_closest", "split_traverse_occlusion",
                   "tristream_closest", "tristream_finish",
-                  "post_rgba8_kernel"):
+                  "post_rgba8_kernel", "shade_hit_kernel",
+                  "shade_next_kernel"):
         ptxas_fields(report, kname)  # fails when the report lacks one
     sass = sass_report()
     log(f"[2] cuobjdump -sass: "
@@ -2578,6 +2750,15 @@ def main(argv):
     log(f"[2] native builders built+loaded in {time.perf_counter() - t0:.2f} s")
     if "--turns" in argv:
         return run_turns(dev, card)
+    if "--shade" in argv:
+        bench = build_bench_scene(1920, 1080)
+        shade = run_shade(bench.pack(device=dev), bench, dev, card, report)
+        print(json.dumps({"kernels": shade, "card": card}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # ---- 3. traversal parity on the bench-scene table ----
     W, H = 1920, 1080
@@ -2835,6 +3016,9 @@ def main(argv):
         issue_ms=issue if issue is not None else "not measured",
         sass_per_pixel=pcount or "not measured", sm_mhz=mhz, sms=sms,
         **ptxas_fields(report, "post_rgba8_kernel")))
+
+    # ---- 16. the shading kernels at the bench frame's shapes ----
+    records += run_shade(ps, scene, dev, card, report)
 
     # ---- 8. where the bench frame's time goes ----
     frame_breakdown(lambda: render_frame(
