@@ -44,6 +44,31 @@ split_traverse_occlusion(walk::Split tab, walk::Args a) {
   walk::run<walk::Split, true>(tab, a);
 }
 
+// The counted walks: the same walks, also counting live rays and leaf-row
+// fetches and marking the leaf rows fetched (walk.cuh, COUNT).  Launched
+// when the caller passes the counters, which ops/packet.py does for the
+// walks of a traced frame; their names carry the walk's, so a profile
+// counts them as the frame's split walks.
+__global__ void __launch_bounds__(walk::THREADS, MIN_BLOCKS)
+split_traverse_closest_counted(walk::Split tab, walk::Args a) {
+  walk::run<walk::Split, false, true>(tab, a);
+}
+
+__global__ void __launch_bounds__(walk::THREADS, MIN_BLOCKS)
+split_traverse_occlusion_counted(walk::Split tab, walk::Args a) {
+  walk::run<walk::Split, true, true>(tab, a);
+}
+
+using Kernel = void (*)(walk::Split, walk::Args);
+
+// mode: 1 occlusion, + 2 counted
+Kernel kernel_of(int mode) {
+  static const Kernel k[4] = {split_traverse_closest, split_traverse_occlusion,
+                              split_traverse_closest_counted,
+                              split_traverse_occlusion_counted};
+  return k[mode & 3];
+}
+
 }  // namespace
 
 extern "C" int split_traverse_launch(
@@ -51,15 +76,18 @@ extern "C" int split_traverse_launch(
     const void *oz, const void *dx, const void *dy, const void *dz,
     const void *t0, const void *ign, int occlusion, void *t_out,
     void *prim_out, void *tri_out, void *bv_out, void *bw_out, void *stats,
-    void *next, void *steps, int blocks, void *stream) {
+    void *next, void *steps, void *counts, void *leaf_bits, int blocks,
+    void *stream) {
   const walk::Args a = walk::make_args(
       n, ox, oy, oz, dx, dy, dz, t0, ign, t_out, prim_out, tri_out, bv_out,
-      bw_out, stats, next, steps);
+      bw_out, stats, next, steps, counts, leaf_bits);
   const walk::Split tab{static_cast<const float4 *>(res),
                         static_cast<const float4 *>(leaf)};
-  return walk::launch(
-      occlusion ? split_traverse_occlusion : split_traverse_closest, tab, a,
-      blocks, stream);
+  // the counters and the bitmap (both or neither) select the counted walk
+  if ((counts == nullptr) != (leaf_bits == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return walk::launch(kernel_of((occlusion ? 1 : 0) + (counts ? 2 : 0)), tab,
+                      a, blocks, stream);
 }
 
 // blocks of walk::THREADS resident on the card, queried once per mode
@@ -69,6 +97,14 @@ extern "C" int split_traverse_blocks(int occlusion) {
   if (c == 0)
     c = walk::resident_blocks(occlusion ? split_traverse_occlusion
                                         : split_traverse_closest);
+  return c;
+}
+
+// the same for the counted walks
+extern "C" int split_traverse_counted_blocks(int occlusion) {
+  static int cached[2] = {0, 0};
+  int &c = cached[occlusion ? 1 : 0];
+  if (c == 0) c = walk::resident_blocks(kernel_of(occlusion ? 3 : 2));
   return c;
 }
 

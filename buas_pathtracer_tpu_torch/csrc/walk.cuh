@@ -37,6 +37,17 @@
 // `steps` is given, each warp adds its loop iterations that read a row, so
 // rows read / (32 x steps) is the achieved lane utilisation.  Neither is
 // the TPU kernels' union-of-block counting, and neither is compared with it.
+// The counted instantiation (COUNT, split tables only: split_traverse.cu's
+// *_counted kernels, the walks of a traced frame) also adds, per warp, the
+// rays fetched with t0 >= 0 and the leaf rows its lanes fetched into
+// `counts`, and sets each fetched leaf row's bit in `leaf_bits` (row r is
+// bit r % 32 of word r // 32), testing the bit through L1 before the
+// atomic OR, so a row many lanes fetch takes few atomics.  Resident rows
+// are not marked: every ray fetches the first rows of the tree, and
+// marking them cost 2.8-3.6% of a traced frame's split walk time, in
+// shared or in global memory, where the counts and leaf marks cost 1.0%
+// (PERF.md, the stress cell).  The other instantiations compile without
+// any of it.
 //
 // What bounds the walk on an H100: each step is a dependent chain, a stack
 // pop, then one 256-byte (or 512-byte leaf) row gathered from L2 at an
@@ -175,6 +186,10 @@ struct Args {
   unsigned long long *stats;  // [rows read, triangle tests]
   int *next;                  // the ray counter, zeroed by the wrapper
   unsigned long long *steps;  // warp steps that read a row, or null
+  // COUNT only: the walk's [live rays, leaf-row fetches] and the bitmap
+  // of the leaf rows it fetched
+  unsigned long long *counts;
+  unsigned *leaf_bits;
 };
 
 struct Ray {
@@ -404,11 +419,18 @@ __device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
   return v;
 }
 
+// a row's bit in a bitmap, read through L1 and set if it is clear (a
+// stale read only costs a redundant atomic)
+__device__ __forceinline__ void mark(unsigned *bits, int row) {
+  const unsigned bit = 1u << (row & 31);
+  if (!(__ldca(bits + (row >> 5)) & bit)) atomicOr(bits + (row >> 5), bit);
+}
+
 // ---- the persistent walk -------------------------------------------------
 
 // Every warp-collective call below is reached by all 32 lanes with a full
 // mask: the loop's exits and the refill loop's condition are warp-uniform.
-template <class Tab, bool OCC>
+template <class Tab, bool OCC, bool COUNT = false>
 __device__ __forceinline__ void run(const Tab &tab, const Args &a) {
   const int lane_id = threadIdx.x & 31;
   const unsigned below = (1u << lane_id) - 1u;
@@ -421,6 +443,7 @@ __device__ __forceinline__ void run(const Tab &tab, const Args &a) {
   int link = 0, kind = 0;  // the popped entry, when pending
   bool pending = false, exhausted = false;
   unsigned long long visits = 0, tests = 0, steps = 0;
+  unsigned long long live_rays = 0, fetches = 0;  // COUNT only
   for (;;) {
     // ---- refill: idle lanes take the next ray indices ----
     unsigned idle = __ballot_sync(FULL, ray < 0);
@@ -434,6 +457,7 @@ __device__ __forceinline__ void run(const Tab &tab, const Args &a) {
         if (i < a.n) {
           const float t_in = a.t0[i];
           bool live = t_in >= 0.0f;
+          if (COUNT && live) ++live_rays;
           if (live) {
             r.ox = a.ox[i]; r.oy = a.oy[i]; r.oz = a.oz[i];
             r.dx = a.dx[i]; r.dy = a.dy[i]; r.dz = a.dz[i];
@@ -519,10 +543,15 @@ __device__ __forceinline__ void run(const Tab &tab, const Args &a) {
       pending = false;
       ++visits;
       bool hit = false;
-      if (kind == KIND_TRIS)
+      if (kind == KIND_TRIS) {
+        if (COUNT) {  // a leaf link is -(row + 1)
+          ++fetches;
+          mark(a.leaf_bits, -link - 1);
+        }
         hit = leaf_step(tab, link, r, b, tests);
-      else if (kind == KIND_PRIM)
+      } else if (kind == KIND_PRIM) {
         hit = prim_step(tab, link, r, b);
+      }
       if (OCC && hit) sp = 0;  // any-hit: the walk ends
     }
   }
@@ -534,6 +563,14 @@ __device__ __forceinline__ void run(const Tab &tab, const Args &a) {
       atomicAdd(a.stats + 1, tests);
     }
     if (a.steps != nullptr && steps) atomicAdd(a.steps, steps);
+  }
+  if (COUNT) {
+    live_rays = warp_sum(live_rays);
+    fetches = warp_sum(fetches);
+    if (lane_id == 0 && (live_rays | fetches)) {
+      atomicAdd(a.counts + 0, live_rays);
+      atomicAdd(a.counts + 1, fetches);
+    }
   }
 }
 
@@ -566,7 +603,8 @@ inline Args make_args(int n, const void *ox, const void *oy, const void *oz,
                       const void *dx, const void *dy, const void *dz,
                       const void *t0, const void *ign, void *t_out,
                       void *prim_out, void *tri_out, void *bv_out,
-                      void *bw_out, void *stats, void *next, void *steps) {
+                      void *bw_out, void *stats, void *next, void *steps,
+                      void *counts = nullptr, void *leaf_bits = nullptr) {
   Args a;
   a.ox = (const float *)ox;
   a.oy = (const float *)oy;
@@ -585,6 +623,8 @@ inline Args make_args(int n, const void *ox, const void *oy, const void *oz,
   a.stats = (unsigned long long *)stats;
   a.next = (int *)next;
   a.steps = (unsigned long long *)steps;
+  a.counts = (unsigned long long *)counts;
+  a.leaf_bits = (unsigned *)leaf_bits;
   return a;
 }
 

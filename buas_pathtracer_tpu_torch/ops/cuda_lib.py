@@ -174,12 +174,14 @@ def load():
         lib.split_traverse_launch.restype = ci
         lib.split_traverse_launch.argtypes = [
             vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-            vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
         for name in ("wide_traverse", "split_traverse"):
             getattr(lib, f"{name}_max_stack").restype = ci
             getattr(lib, f"{name}_max_stack").argtypes = []
             getattr(lib, f"{name}_blocks").restype = ci
             getattr(lib, f"{name}_blocks").argtypes = [ci]
+        lib.split_traverse_counted_blocks.restype = ci
+        lib.split_traverse_counted_blocks.argtypes = [ci]
         lib.tristream_closest_launch.restype = ci
         lib.tristream_closest_launch.argtypes = [
             vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp]

@@ -22,12 +22,21 @@ Both kernels run persistent warps (``csrc/walk.cuh``): the wrapper launches
 ``walk_grid`` blocks of ``WALK_THREADS`` and zeroes the ray counter the
 warps fetch from; a warp refills once half its lanes are idle and steps
 the node kind most of its lanes want.
+
+Each walk runs inside the span ``pt.walk`` (``utils/trace.py``).  While the
+tracer counts walks (spans on, in a traced frame), ``split_traverse``
+launches the counted kernel of the same walk (``csrc/walk.cuh``, COUNT) in
+place of the plain one: the same outputs and stats, and in a ``WalkCounts``
+its live rays (t0 >= 0), its leaf-row fetches and a bitmap of the leaf rows
+it fetched, which the tracer keeps and reads only after the frames.
+Untraced frames launch the uncounted kernels.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core.vec import Vec3
@@ -94,12 +103,51 @@ def _check(tables, o: Vec3, d: Vec3, t0, ign, depth: int):
                                  f"{x.dtype} {tuple(x.shape)}")
 
 
+class WalkCounts:
+    """A counted split walk's counters, in one int32 buffer on the walk's
+    device, zeroed when made: the walk's ray counter (``next``), a pad, its
+    live rays and leaf-row fetches as two int64 (``counts``), and a bitmap
+    of the leaf rows it fetched (``leaf_bits``: row r is bit r % 32 of word
+    r // 32).  The counted walk takes its ray counter from here, so it
+    zeroes one buffer where an uncounted walk zeroes its counter."""
+
+    def __init__(self, leaf_rows: int, device):
+        self.leaf_rows = int(leaf_rows)
+        self.buf = torch.zeros(6 + -(-self.leaf_rows // 32),
+                               dtype=torch.int32, device=device)
+        self.next = self.buf[:1]
+        self.counts = self.buf[2:6].view(torch.int64)
+        self.leaf_bits = self.buf[6:]
+        self._read = None
+
+    def mark(self, live: int, leaf_reads) -> None:
+        """Fill the counters from a walk on the host: its live rays and its
+        reads of each leaf row (int64 (L,))."""
+        row = torch.nonzero(leaf_reads).squeeze(1)
+        w = torch.zeros(self.leaf_bits.shape[0], dtype=torch.int64)
+        w.index_add_(0, row >> 5, torch.ones_like(row) << (row & 31))
+        self.counts.copy_(torch.tensor([live, int(leaf_reads.sum())]))
+        self.leaf_bits.copy_((w - ((w >> 31) << 32)).to(torch.int32))
+
+    def read(self) -> tuple:
+        """(live rays, leaf-row fetches, distinct leaf rows); reads the
+        buffer back (a wait on the card), so only once the walk is over."""
+        if self._read is None:
+            host = self.buf.cpu()
+            live, fetches = host[2:6].view(torch.int64).tolist()
+            rows = np.unpackbits(host[6:].numpy().view(np.uint8)).sum()
+            self._read = (live, fetches, int(rows))
+        return self._read
+
+
 def _launch(name, key, tables, o: Vec3, d: Vec3, t0, ign, occlusion,
-            steps=None):
+            steps=None, counted: Optional[WalkCounts] = None):
     """Allocate the outputs and the ray counter and launch ``csrc/<name>.cu``
     on the current stream; ``key`` names the launch counter
     (``utils/trace.py``).  ``steps``, an int64 (1,) tensor, if given, gets
-    the warp steps that read a row added."""
+    the warp steps that read a row added.  ``counted`` (split_traverse
+    only), a ``WalkCounts`` on the rays' device, launches the counted walk,
+    which fills it."""
     lib = cuda_lib.load()
     if getattr(lib, f"{name}_max_stack")() != STACK:
         raise RuntimeError(f"csrc/{name}.cu STACK differs from ops/packet.py")
@@ -111,14 +159,25 @@ def _launch(name, key, tables, o: Vec3, d: Vec3, t0, ign, occlusion,
     bv = torch.empty(n, dtype=torch.float32, device=dev)
     bw = torch.empty(n, dtype=torch.float32, device=dev)
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+    blocks_of = getattr(lib, f"{name}_blocks")
+    tail = ()  # the split walk's counters and leaf bitmap, or none
+    if counted is None:
+        nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+        if name == "split_traverse":
+            tail = (None, None)
+    else:
+        if name != "split_traverse" or counted.buf.device != dev:
+            raise ValueError("counted walks are split walks, their counters "
+                             "on the rays' device")
+        nxt = counted.next
+        tail = (counted.counts.data_ptr(), counted.leaf_bits.data_ptr())
+        blocks_of = lib.split_traverse_counted_blocks
     if steps is not None and (steps.device != dev or steps.dtype != torch.int64
                               or steps.numel() != 1):
         raise ValueError("steps must be an int64 (1,) tensor on the rays' "
                          "device")
     with torch.cuda.device(dev):
-        blocks = walk_grid(n, getattr(lib, f"{name}_blocks")(
-            int(bool(occlusion))))
+        blocks = walk_grid(n, blocks_of(int(bool(occlusion))))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
             *(x.data_ptr() for x in tables), n, o.x.data_ptr(),
@@ -127,7 +186,7 @@ def _launch(name, key, tables, o: Vec3, d: Vec3, t0, ign, occlusion,
             int(bool(occlusion)), t.data_ptr(), prim.data_ptr(),
             tri.data_ptr(), bv.data_ptr(), bw.data_ptr(), stats.data_ptr(),
             nxt.data_ptr(), None if steps is None else steps.data_ptr(),
-            blocks, stream)
+            *tail, blocks, stream)
     cuda_lib.check(rc, name)
     trace.launch(key)
     return t, prim, tri, bv, bw, stats
@@ -141,12 +200,14 @@ def wide_traverse(rows, depth: int, o: Vec3, d: Vec3, t0, ign,
     with t0 < 0 pass through); ign (N,) int32 prim to ignore (-1: none).
     ``steps`` (kernel only): see ``_launch``."""
     _check([("rows", rows, ROW_W)], o, d, t0, ign, depth)
-    if rows.device.type == "cpu":
-        return wide_traverse_plain(rows, depth, o, d, t0, ign, occlusion)
-    if rows.device.type != "cuda":
+    if rows.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no wide_traverse for device {rows.device}")
-    return _launch("wide_traverse", "occlusion" if occlusion else "closest",
-                   [rows], o, d, t0, ign, occlusion, steps)
+    with trace.span("pt.walk"):
+        if rows.device.type == "cpu":
+            return wide_traverse_plain(rows, depth, o, d, t0, ign, occlusion)
+        return _launch("wide_traverse",
+                       "occlusion" if occlusion else "closest", [rows], o, d,
+                       t0, ign, occlusion, steps)
 
 
 def split_traverse(res, leaf, depth: int, o: Vec3, d: Vec3, t0, ign,
@@ -156,14 +217,27 @@ def split_traverse(res, leaf, depth: int, o: Vec3, d: Vec3, t0, ign,
     the rays and outputs as in ``wide_traverse``."""
     _check([("res", res, ROW_W), ("leaf", leaf, LEAF_ROW_W)], o, d, t0, ign,
            depth)
-    if res.device.type == "cpu":
-        return split_traverse_plain(res, leaf, depth, o, d, t0, ign,
-                                    occlusion)
-    if res.device.type != "cuda":
+    if res.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no split_traverse for device {res.device}")
-    return _launch("split_traverse",
-                   "split_occlusion" if occlusion else "split_closest",
-                   [res, leaf], o, d, t0, ign, occlusion, steps)
+    key = "split_occlusion" if occlusion else "split_closest"
+    counted = None
+    with trace.span("pt.walk"):
+        if trace.counting_walks():
+            counted = WalkCounts(leaf.shape[0], res.device)
+        if res.device.type == "cuda":
+            out = _launch("split_traverse", key, [res, leaf], o, d, t0, ign,
+                          occlusion, steps, counted)
+        elif counted is None:
+            out = split_traverse_plain(res, leaf, depth, o, d, t0, ign,
+                                       occlusion)
+        else:
+            reads = torch.zeros(leaf.shape[0], dtype=torch.int64)
+            out = split_traverse_plain(res, leaf, depth, o, d, t0, ign,
+                                       occlusion, leaf_reads=reads)
+            counted.mark(int((t0 >= 0.0).sum()), reads)
+    if counted is not None:
+        trace.walk(key, t0.shape[0], counted)
+    return out
 
 
 class _Walk:

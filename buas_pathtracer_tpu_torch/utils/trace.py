@@ -3,7 +3,8 @@ bounces narrow, which part of the renderer each stretch of the timeline
 belongs to, and set-up's phases.
 
 **Counters are always on.**  They are host integers and
-``time.perf_counter_ns`` pairs, and never launch device work.  A frame
+``time.perf_counter_ns`` pairs, and never launch device work (``walks``,
+kept only while spans are on, is the one exception).  A frame
 record covers one ``ProgressiveRenderer.render_one_frame`` and the
 ``display_rgba8`` calls after it, up to the next frame (``frame`` and
 ``display`` open them).  It counts what happens while a frame or display
@@ -25,6 +26,15 @@ call runs, and nothing in between:
   Advanced Pathtracer; the live count is read for the loop's own test.
 * ``launches``: the port's own kernel launches, by kernel (``KERNELS``);
   ``launch_totals`` counts them over the process.
+* ``walks``, while spans are on (the one counter that fills device
+  memory): for each split walk (``ops/packet.py`` ``split_traverse``,
+  K4/K5) its kernel key, its rays and the ``packet.WalkCounts`` that the
+  walk, launched then as its counted kernel, fills: its live rays (t0 >=
+  0), its leaf-row fetches (a lane fetching a row counts once) and a bitmap
+  of the leaf rows it fetched.  They are read only by ``walk_counts``,
+  after the frames, which gives each walk's ``live``, ``leaf_fetches`` and
+  ``leaf_rows`` (the distinct leaf rows it touched).  Untraced frames
+  launch the uncounted walks and keep no ``walks``.
 
 The last ``RING`` records are kept (``records``), each with ``spans_on``.
 
@@ -45,8 +55,9 @@ the device time of the kernels launched inside it
     pt.frame > pt.camera > pt.wait.camera            (camera_on)
              , pt.pass > pt.camera > pt.wait.sampler_tables
                                                      (sampler, rays)
-                       , pt.bounce > pt.wait.live_count, pt.intersect,
-                                     pt.nee
+                       , pt.bounce > pt.wait.live_count,
+                                     pt.intersect > pt.walk,
+                                     pt.nee > pt.walk
                        , pt.stage (staged sort / permute / restore)
                        , pt.camera                   (vignette, untile)
                        , pt.film
@@ -55,7 +66,10 @@ the device time of the kernels launched inside it
 
 A wait is a ``pt.wait.<site>`` span of its own.  ``pt.bounce`` less its
 child spans is the shading (on the card the ``shade_hit`` and
-``shade_next`` kernels, one launch each a bounce).
+``shade_next`` kernels, one launch each a bounce).  ``pt.walk`` is one walk
+of the row BVH (``wide_traverse`` or ``split_traverse``) with the buffers it
+fills (a counted split walk's ``WalkCounts`` among them); the other
+integrators' and the viewer's queries make it too.
 
 **Set-up phases** (``phase``, seconds summed over the process, ``phases``):
 ``kernel_load`` (the kernel library and the native host library, loaded or
@@ -103,7 +117,8 @@ class FrameRecord:
     """One frame's counters, and its spans' marks while spans were on."""
 
     __slots__ = ("seq", "spans_on", "host_ns", "waits", "wait_ns", "sites",
-                 "bounces", "launches", "displays", "calls", "marks")
+                 "bounces", "launches", "displays", "calls", "marks",
+                 "walks")
 
     def __init__(self, seq: int):
         self.seq = seq
@@ -117,10 +132,23 @@ class FrameRecord:
         self.displays = 0
         self.calls = 0  # frame and display calls still running
         self.marks: List[tuple] = []  # (span name, entry?) in order
+        self.walks: List[tuple] = []  # (key, rays, packet.WalkCounts)
 
     @property
     def host_issue_ns(self) -> int:
         return self.host_ns - self.wait_ns
+
+    def walk_counts(self) -> List[Dict]:
+        """The counted split walks, one dict a walk in launch order: kernel
+        key, rays, live rays, leaf-row fetches and the distinct leaf rows it
+        touched.  Reads the counters back, so only once the frame is
+        over."""
+        out = []
+        for key, rays, counts in self.walks:
+            live, fetches, rows = counts.read()
+            out.append(dict(kernel=key, rays=rays, live=live,
+                            leaf_fetches=fetches, leaf_rows=rows))
+        return out
 
 
 class _Span:
@@ -217,6 +245,16 @@ class Tracer:
         if self.open:
             self.cur.bounces.append((index, lanes, live))
 
+    def counting_walks(self) -> bool:
+        """Should a split walk launched now be counted (spans on, inside a
+        frame or display)?"""
+        return self.on and bool(self.open)
+
+    def walk(self, key: str, rays: int, counts) -> None:
+        """Keep a counted split walk's counters in the current record."""
+        if self.open:
+            self.cur.walks.append((key, int(rays), counts))
+
     # -- spans ----------------------------------------------------------------
     def span(self, name: str):
         """A marked profiler range named ``name`` while spans are on."""
@@ -265,6 +303,8 @@ span = _TRACER.span
 wait = _TRACER.wait
 launch = _TRACER.launch
 bounce = _TRACER.bounce
+counting_walks = _TRACER.counting_walks
+walk = _TRACER.walk
 frame = _TRACER.frame
 display = _TRACER.display
 phase = _TRACER.phase

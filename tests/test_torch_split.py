@@ -224,6 +224,46 @@ def test_split_walk_counts_leaf_reads(packed):
     assert 0 < int(reads.sum()) < int(out[5][0])
 
 
+@pytest.mark.parametrize("occlusion", [False, True],
+                         ids=["closest", "occlusion"])
+def test_split_walk_leaf_counts_match_its_pops(packed, monkeypatch,
+                                               occlusion):
+    """The plain split walk's leaf-row fetches (the sum of its reads) and
+    distinct leaf rows (the rows read at all) equal a brute count of the
+    leaf links its own walk popped; ``WalkCounts`` keeps them as the
+    counted kernel does."""
+    popped = []
+    pop = packet._Walk.pop
+
+    def spy(self):
+        got = pop(self)
+        if got is not None:
+            popped.extend(got[1].tolist())
+        return got
+
+    monkeypatch.setattr(packet._Walk, "pop", spy)
+    _, _, tps = packed["packet"]
+    o, d, t0, ign = _rays(None, 512, "dead60", 7)
+    if occlusion:
+        t0 = np.where(t0 > 0, 6.0, t0).astype(np.float32)
+    rows = tps.v4_leaf.shape[0]
+    reads = torch.zeros(rows, dtype=torch.int64)
+    packet.split_traverse_plain(
+        tps.v4_res, tps.v4_leaf, tps.wide_depth, _tv(o), _tv(d),
+        torch.from_numpy(t0), torch.from_numpy(ign), occlusion,
+        leaf_reads=reads)
+    leaf = [-link - 1 for link in popped if link < 0]
+    assert int(reads.sum()) == len(leaf) > 0
+    assert int((reads > 0).sum()) == len(set(leaf)) < rows
+    assert np.array_equal(reads.numpy(), np.bincount(leaf, minlength=rows))
+    counts = packet.WalkCounts(rows, "cpu")
+    counts.mark(int((t0 >= 0).sum()), reads)
+    assert counts.read() == (int((t0 >= 0).sum()), len(leaf), len(set(leaf)))
+    bits = np.unpackbits(counts.leaf_bits.numpy().view(np.uint8),
+                         bitorder="little")
+    assert sorted(np.nonzero(bits)[0].tolist()) == sorted(set(leaf))
+
+
 def test_split_wrapper_checks_inputs(packed):
     _, _, tps = packed["packet"]
     o, d, t0, ign = _rays(None, 16, "incoherent", 4)
@@ -321,6 +361,39 @@ def test_split_kernel_matches_plain_on_card(packed, card, kind, n,
     assert trace.launch_totals()[key] == before + 1
     for a, b in zip(out, ref):
         assert torch.equal(a.cpu(), b.cpu().to(a.dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("occlusion", [False, True],
+                         ids=["closest", "occlusion"])
+@pytest.mark.parametrize("kind,n", KINDS)
+def test_split_kernel_counts_match_plain_on_card(packed, card, kind, n,
+                                                 occlusion):
+    """The counted split walk on the card: the plain version's outputs and
+    stats, and in its ``WalkCounts`` its live rays, its leaf-row fetches
+    and the bitmap of the leaf rows the plain walk read on the same rays,
+    bit for bit."""
+    _, _, tps = packed["packet"]
+    o, d, t0, ign = _rays(packed["packet"][0], n, kind, 6)
+    res, leaf = tps.v4_res.to(card), tps.v4_leaf.to(card)
+    args = (TV(*(c.to(card) for c in _tv(o))),
+            TV(*(c.to(card) for c in _tv(d))),
+            torch.from_numpy(t0).to(card), torch.from_numpy(ign).to(card),
+            occlusion)
+    counts = packet.WalkCounts(leaf.shape[0], card)
+    key = "split_occlusion" if occlusion else "split_closest"
+    out = packet._launch("split_traverse", key, [res, leaf], *args,
+                         counted=counts)
+    reads = torch.zeros(leaf.shape[0], dtype=torch.int64, device=card)
+    ref = packet.split_traverse_plain(res, leaf, tps.wide_depth, *args,
+                                      leaf_reads=reads)
+    for a, b in zip(out, ref):
+        assert torch.equal(a.cpu(), b.cpu().to(a.dtype))
+    host = packet.WalkCounts(leaf.shape[0], "cpu")
+    host.mark(int((t0 >= 0).sum()), reads.cpu())
+    assert counts.read() == host.read()
+    assert torch.equal(counts.leaf_bits.cpu(), host.leaf_bits)
+    assert int(reads.sum()) > 0
 
 
 @pytest.mark.gpu

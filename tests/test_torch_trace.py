@@ -1,9 +1,9 @@
 """The port's tracer (``buas_pathtracer_tpu_torch/utils/trace.py``): a
 frame's record counts every wait by its site and the bounces' lanes as the
 integrator saw them; spans exist only while a profiler records and nest as
-the documented tree on the profiler's timeline; the ring, the launch
-counters and the set-up phases.  A card test holds the waits counted in one
-1080p bench frame to the synchronising operations PyTorch reports, and the
+the documented tree on the profiler's timeline; split walks are counted in
+traced frames only; the ring, the launch counters and the set-up phases.
+A card test holds the waits counted in one 1080p bench frame to the synchronising operations PyTorch reports, and the
 device work launched inside the spans of the same frame to its device
 time."""
 
@@ -23,8 +23,10 @@ from buas_pathtracer_tpu_torch.core import vec
 from buas_pathtracer_tpu_torch.integrators import advanced
 from buas_pathtracer_tpu_torch.models import camera as cm
 from buas_pathtracer_tpu_torch.models.scene import Scene, SceneSettings
+from buas_pathtracer_tpu_torch.ops import packet
 from buas_pathtracer_tpu_torch.runtime.progressive import ProgressiveRenderer
 from buas_pathtracer_tpu_torch.utils import trace
+from buas_pathtracer_tpu_torch.utils.procgen import icosphere
 
 W, H = 32, 16
 BOUNCES = 4
@@ -37,6 +39,7 @@ PARENTS = {
     "pt.wait.camera": {"pt.camera"}, "pt.wait.sampler_tables": {"pt.camera"},
     "pt.bounce": {"pt.pass"}, "pt.wait.live_count": {"pt.bounce"},
     "pt.intersect": {"pt.bounce"}, "pt.nee": {"pt.bounce"},
+    "pt.walk": {"pt.intersect", "pt.nee"},
     "pt.film": {"pt.pass"}, "pt.wait.stats": {"pt.frame"},
     "pt.post": {"pt.display"}, "pt.wait.dither_tile": {"pt.display"},
     "pt.wait.readback": {"pt.display"},
@@ -139,6 +142,7 @@ def test_profiler_holds_the_span_tree(renderer):
     assert count["pt.wait.camera"] == CAMERA_SCALARS
     assert count["pt.camera"] == 3  # camera_on; the rays; the vignette
     assert count["pt.frame"] == count["pt.display"] == count["pt.pass"] == 1
+    assert count["pt.walk"] == 2 * len(rec.bounces)  # closest and shadow
     stack = []
     for name, entry in rec.marks:
         if entry:
@@ -148,6 +152,80 @@ def test_profiler_holds_the_span_tree(renderer):
     assert stack == []
     assert sorted(n for n, entry in rec.marks if entry) == sorted(
         e.name for e in events)
+
+
+@pytest.fixture(scope="module")
+def split_renderer():
+    """The trace scene with a mesh, whose tables the residence limit
+    (lowered here) sends to the split walk."""
+    sc = small_scene()
+    sc.add_mesh(1, icosphere(subdivisions=2),
+                vec.translate([0.2, 0.6, 5.0]) * vec.scale(0.7))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(packet, "RESIDENT_TABLE_LIMIT_BYTES", 0)
+        r = ProgressiveRenderer(sc, W, H, device="cpu")
+    assert r.ps.v4_res is not None
+    r.render_one_frame()
+    r.display_rgba8()
+    return r
+
+
+def test_untraced_frames_hold_no_walk_counts(split_renderer):
+    """Without a profiler the split walks are not counted: the record
+    holds no walk, the waits are a frame's usual ones, nothing is
+    launched (the plain versions on the CPU)."""
+    rec = _frame(split_renderer)
+    assert not rec.spans_on and rec.walks == [] and rec.walk_counts() == []
+    counts = len(rec.bounces) + (len(rec.bounces) < BOUNCES)
+    assert {k: n for k, (n, _) in rec.sites.items()} == {
+        "camera": CAMERA_SCALARS, "sampler_tables": 1, "live_count": counts,
+        "stats": 1, "dither_tile": 1, "readback": 1}
+    assert rec.launches == {}
+
+
+def test_traced_frames_hold_one_count_a_split_walk(split_renderer):
+    """Under a profiler each split walk (one ``pt.walk`` span) leaves one
+    entry: its key, its rays, its live rays, its leaf-row fetches and the
+    distinct leaf rows among them; the waits and launches are those of an
+    untraced frame."""
+    r = split_renderer
+    plain = _frame(r)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rec = _frame(r)
+    got = rec.walk_counts()
+    assert len(got) == sum(1 for n, entry in rec.marks
+                           if entry and n == "pt.walk") == 2 * len(
+                               rec.bounces)
+    walks = [e for e in prof.events() if e.name == "pt.walk"]
+    assert len(walks) == len(got)
+    assert all(_pt_parent(e) in PARENTS["pt.walk"] for e in walks)
+    assert [w["kernel"] for w in got] == [
+        "split_closest", "split_occlusion"] * len(rec.bounces)
+    leaf_rows = r.ps.v4_leaf.shape[0]
+    for w in got:
+        assert w["rays"] == W * H and 0 <= w["live"] <= w["rays"]
+        assert w["leaf_rows"] <= min(w["leaf_fetches"], leaf_rows)
+    assert got[0]["live"] == W * H  # every primary ray
+    assert sum(w["leaf_fetches"] for w in got) > 0
+    assert rec.waits == plain.waits and rec.launches == plain.launches
+    assert _frame(r).walks == []  # spans off again
+
+
+def test_walks_are_counted_only_in_a_traced_call():
+    """Walks are counted while spans are on inside a frame or display,
+    and kept in that call's record."""
+    t = trace.Tracer()
+    assert not t.counting_walks()
+    with t.frame() as rec:
+        assert not t.counting_walks()
+        t.on = True
+        assert t.counting_walks()
+        t.walk("split_closest", 8, "counts")
+    assert rec.walks == [("split_closest", 8, "counts")]
+    t.on = True
+    assert not t.counting_walks()  # outside every frame and display
+    t.walk("split_closest", 8, "counts")
+    assert rec.walks == [("split_closest", 8, "counts")]
 
 
 def test_last_displayed_is_a_whole_frame_and_its_display():
@@ -349,3 +427,34 @@ def test_card_waits_are_the_syncs_and_spans_cover_the_frame():
     layers = (ms["pt.camera"] + ms["pt.intersect"] + ms["pt.nee"]
               + own["pt.bounce"] + ms["pt.film"])
     assert abs(layers - ms["pt.frame"]) <= 0.1 * ms["pt.frame"], (ms, own)
+
+
+@pytest.mark.gpu
+def test_card_traced_split_frame_counts_its_own_walks():
+    """On the card a traced frame of split tables launches, counts and
+    waits as an untraced one does; its split walks are the counted kernels
+    (no second walk), one entry a walk, each counting every primary ray
+    of the first wave; an untraced frame keeps no walks, so its walks get
+    no counters and launch the uncounted kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sc = small_scene(192, 96)
+    sc.add_mesh(1, icosphere(subdivisions=3),
+                vec.translate([0.2, 0.6, 5.0]) * vec.scale(0.7))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(packet, "RESIDENT_TABLE_LIMIT_BYTES", 0)
+        r = ProgressiveRenderer(sc, 192, 96, device="cuda")
+    assert r.ps.v4_res is not None
+    _frame(r)
+    plain = _frame(r)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rec = _frame(r)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if "split_traverse" in e.name]
+    assert rec.launches == plain.launches and rec.waits == plain.waits
+    assert plain.walks == [] and _frame(r).walks == []
+    walks = rec.walk_counts()
+    assert len(walks) == len(kernels) == (
+        rec.launches["split_closest"] + rec.launches["split_occlusion"])
+    assert all("_counted" in k for k in kernels)
+    assert walks[0]["live"] == 192 * 96 and walks[0]["leaf_fetches"] > 0

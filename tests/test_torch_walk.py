@@ -254,10 +254,13 @@ def plain_walk(ps, split, o, d, t0, ign, occlusion):
     return [x.numpy() for x in out]
 
 
-def host_walk(lib, ps, split, o, d, t0, ign, occlusion, resident_blocks=2):
+def host_walk(lib, ps, split, o, d, t0, ign, occlusion, resident_blocks=2,
+              counters=None):
     """The walk core's kernel on the host, launched as the wrapper launches
     it: walk_grid blocks, a zeroed counter.  Returns the plain walk's
-    outputs, the warp steps and the counter's final value."""
+    outputs, the warp steps and the counter's final value.  ``counters``,
+    a zeroed int64 (2,) array and a zeroed uint32 bitmap of the leaf rows,
+    runs the counted split walk, which fills them."""
     n = t0.size
     outs = [np.zeros(n, dt) for dt in (np.float32, np.int32, np.int32,
                                        np.float32, np.float32)]
@@ -272,7 +275,11 @@ def host_walk(lib, ps, split, o, d, t0, ign, occlusion, resident_blocks=2):
     args = [ctypes.c_int(n), *map(p, keep), p(t0), p(ign),
             ctypes.c_int(int(occlusion)), *map(p, outs), p(stats), p(nxt),
             p(steps), ctypes.c_int(packet.walk_grid(n, resident_blocks))]
-    if split:
+    if counters is not None:
+        args[-1:-1] = map(p, counters)
+        lib.emu_split_counted(p(ps.v4_res.numpy()), p(ps.v4_leaf.numpy()),
+                              *args)
+    elif split:
         lib.emu_split(p(ps.v4_res.numpy()), p(ps.v4_leaf.numpy()), *args)
     else:
         lib.emu_wide(p(ps.wide_rows.numpy()), *args)
@@ -342,6 +349,43 @@ def test_host_walk_deep_stack(host_lib, tables, split, monkeypatch):
     out, _, _ = host_walk(host_lib, ps, split, o, d, t0, ign, False)
     assert_same(out, ref)
     assert (out[1] >= 0).all()
+
+
+@pytest.mark.parametrize("occlusion", [False, True],
+                         ids=["closest", "occlusion"])
+@pytest.mark.parametrize("edge", ["n0", "n33", "many", "all_dead", "all_nan",
+                                  "deep"])
+def test_host_counted_walk_counts_the_plain_walks_leaf_reads(
+        host_lib, tables, edge, occlusion):
+    """The counted split walk (``COUNT``): the plain walk's outputs and
+    stats, the rays with t0 >= 0 as its live rays, the plain walk's leaf
+    reads as its leaf-row fetches, and a bit set in its bitmap for each
+    leaf row the plain walk read, and for no other."""
+    if edge == "deep":
+        ps = tables["deep"]
+        o, d, t0, ign = deep_rays(96)
+    else:
+        ps = tables["packet"]
+        n, dead, nan = EDGES[edge]
+        o, d, t0, ign = edge_rays(n, seed=n + 17, dead=dead, nan=nan,
+                                  occlusion=occlusion)
+    rows = ps.v4_leaf.shape[0]
+    reads = torch.zeros(rows, dtype=torch.int64)
+    ref = [x.numpy() for x in packet.split_traverse_plain(
+        ps.v4_res, ps.v4_leaf, ps.wide_depth, _tv(o), _tv(d),
+        torch.from_numpy(t0), torch.from_numpy(ign), occlusion,
+        leaf_reads=reads)]
+    counts = np.zeros(2, np.int64)
+    bits = np.zeros(-(-rows // 32), np.uint32)
+    out, _, _ = host_walk(host_lib, ps, True, o, d, t0, ign, occlusion,
+                          counters=(counts, bits))
+    assert_same(out, ref)
+    assert counts.tolist() == [int((t0 >= 0).sum()), int(reads.sum())]
+    flags = np.unpackbits(bits.view(np.uint8), bitorder="little")
+    assert np.array_equal(flags[:rows] != 0, reads.numpy() > 0)
+    assert not flags[rows:].any()
+    if edge in ("n33", "many", "deep"):
+        assert counts[1] > 0
 
 
 def test_plain_walk_reads_no_row_for_nan_rays(tables):

@@ -70,6 +70,10 @@ inline int atomicAdd(int *p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_S
 inline unsigned long long atomicAdd(unsigned long long *p, unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline unsigned atomicOr(unsigned *p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned __ldca(const unsigned *p) { return __atomic_load_n(p, __ATOMIC_RELAXED); }
 inline unsigned long long atomicMin(unsigned long long *p, unsigned long long v) {
   unsigned long long old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
   while (v < old && !__atomic_compare_exchange_n(p, &old, v, false, __ATOMIC_SEQ_CST,

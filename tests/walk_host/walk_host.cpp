@@ -8,7 +8,7 @@
 #include <vector>
 #include "walk.cuh"
 
-template <class Tab, bool OCC>
+template <class Tab, bool OCC, bool COUNT = false>
 static void emu_run(Tab tab, walk::Args a, int blocks) {
   const int threads = blocks * walk::THREADS;
   std::vector<Warp> warps(threads / 32);
@@ -17,7 +17,7 @@ static void emu_run(Tab tab, walk::Args a, int blocks) {
     th.emplace_back([&, t] {
       threadIdx.x = t % walk::THREADS;
       cur_warp = &warps[t / 32];
-      walk::run<Tab, OCC>(tab, a);
+      walk::run<Tab, OCC, COUNT>(tab, a);
     });
   for (auto &x : th) x.join();
 }
@@ -44,5 +44,20 @@ extern "C" int emu_split(const void *res, const void *leaf, int n, const void *o
   if (n <= 0) return 0;
   if (occ) emu_run<walk::Split, true>(tab, a, blocks);
   else emu_run<walk::Split, false>(tab, a, blocks);
+  return 0;
+}
+// split_traverse_launch's counted walk: the counts and the leaf bitmap
+// after steps
+extern "C" int emu_split_counted(const void *res, const void *leaf, int n, const void *ox,
+    const void *oy, const void *oz, const void *dx, const void *dy, const void *dz,
+    const void *t0, const void *ign, int occ, void *t_out, void *prim_out, void *tri_out,
+    void *bv_out, void *bw_out, void *stats, void *next, void *steps, void *counts,
+    void *leaf_bits, int blocks) {
+  walk::Args a = walk::make_args(n, ox, oy, oz, dx, dy, dz, t0, ign, t_out, prim_out, tri_out,
+                                 bv_out, bw_out, stats, next, steps, counts, leaf_bits);
+  walk::Split tab{(const float4 *)res, (const float4 *)leaf};
+  if (n <= 0) return 0;
+  if (occ) emu_run<walk::Split, true, true>(tab, a, blocks);
+  else emu_run<walk::Split, false, true>(tab, a, blocks);
   return 0;
 }
