@@ -17,28 +17,17 @@
 // The RNG draws keep the plain version's order: REFLECTANCE, the three fuzz
 // draws, [the NEE draws, in PyTorch], INDIRECT_LIGHTING, ROULETTE.
 //
-// The header compiles with g++ as well (no __CUDACC__), so the CPU tests
-// can run its logic against the plain version (tests/shade_host/).
+// The header compiles with g++ as well (no __CUDACC__; lane.cuh), so the CPU
+// tests can run its logic against the plain version (tests/shade_host/).
 
 #pragma once
 
-#include <math.h>
-#include <stdint.h>
-
-#ifndef __CUDACC__
-#include <cstring>
-#define __device__
-#define __forceinline__ inline
-inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
-inline float __uint_as_float(uint32_t u) {
-  float f;
-  std::memcpy(&f, &u, sizeof f);
-  return f;
-}
-template <class T> inline T __ldg(const T *p) { return *p; }
-#endif
+#include "lane.cuh"
 
 namespace shade {
+
+using lane::clamp_min;
+using lane::ld64;
 
 constexpr int STACK_DEPTH = 8;  // integrators/advanced.py STACK_DEPTH
 
@@ -147,10 +136,6 @@ struct Args {
   const float *n_dot_e, *pdf_e, *rad_e[3];
 };
 
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return v != v ? v : fmaxf(v, lo);
-}
-
 __device__ __forceinline__ float clamp_to(float v, float lo, float hi) {
   return v != v ? v : fminf(fmaxf(v, lo), hi);
 }
@@ -160,10 +145,6 @@ __device__ __forceinline__ float maximum(float a, float b) {
 }
 
 __device__ __forceinline__ float recip(float v) { return 1.0f / v; }
-
-__device__ __forceinline__ int64_t ld64(const int64_t *p) {
-  return (int64_t)__ldg(reinterpret_cast<const long long *>(p));
-}
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
                                       float by, float bz) {

@@ -27,13 +27,15 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 from ..utils import trace
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
 SOURCES = ("wide_traverse.cu", "split_traverse.cu", "tristream.cu",
-           "post.cu", "shade.cu")
+           "post.cu", "shade.cu", "hit.cu")
 # -fmad=false: no fused multiply-add, so the kernels round like the unfused
 # PyTorch ops of their plain versions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -191,11 +193,12 @@ def load():
         lib.post_rgba8_launch.argtypes = [
             vp, vp, vp, ci, ci, cf, cf, cf, cf, cf, cf, ci, ci, ci, ci, ci,
             vp]
-        for name in ("shade_hit", "shade_next"):
+        for name in ("shade_hit", "shade_next", "hit_record"):
             getattr(lib, f"{name}_launch").restype = ci
             getattr(lib, f"{name}_launch").argtypes = [vp, vp]
-        lib.shade_args_size.restype = ci
-        lib.shade_args_size.argtypes = []
+        for name in ("shade_args_size", "hit_args_size"):
+            getattr(lib, name).restype = ci
+            getattr(lib, name).argtypes = []
         _lib = lib
         return _lib
 
@@ -207,6 +210,40 @@ def build_report() -> dict:
         return {}
     with open(path) as f:
         return parse_ptxas(f.read())
+
+
+def check_lanes(n: int, dev, items) -> None:
+    """Each (name, tensor, dtype) is an (n,) tensor of that dtype on
+    ``dev`` with unit stride."""
+    for name, x, dt in items:
+        if not isinstance(x, torch.Tensor) or x.dtype != dt \
+                or x.shape != (n,) or x.stride() != (1,) or x.device != dev:
+            got = (f"{x.dtype} {tuple(x.shape)} stride {x.stride()} on "
+                   f"{x.device}" if isinstance(x, torch.Tensor)
+                   else type(x).__name__)
+            raise ValueError(f"{name} must be a unit-stride ({n},) {dt} "
+                             f"tensor on {dev}, got {got}")
+
+
+def check_table(name: str, x, dt, shape, dev) -> None:
+    """``x`` is a contiguous tensor of dtype ``dt`` on ``dev`` whose shape
+    matches ``shape`` (None matches any size)."""
+    if x.dtype != dt or x.device != dev or not x.is_contiguous() or any(
+            want is not None and got != want
+            for got, want in zip(x.shape, shape)) or x.dim() != len(shape):
+        raise ValueError(f"{name} must be a contiguous {dt} tensor of shape "
+                         f"{shape} on {dev}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def vec_lanes(name: str, v, dt=torch.float32):
+    """``check_lanes`` items of a ``Vec3``'s three components."""
+    return [(f"{name}.{c}", x, dt) for c, x in zip("xyz", v)]
+
+
+def vec_ptrs(v):
+    """A ``Vec3``'s three data pointers, as a ctypes array."""
+    return (ctypes.c_void_p * 3)(*(x.data_ptr() for x in v))
 
 
 def check(rc: int, what: str) -> None:

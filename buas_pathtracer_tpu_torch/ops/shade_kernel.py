@@ -24,6 +24,8 @@ from ..core.vec import Vec3
 from ..core.sampler import Strategy
 from ..utils import trace
 from . import cuda_lib
+from .cuda_lib import (check_lanes as _lanes, check_table as _table,
+                       vec_lanes as _vec, vec_ptrs as _ptrs)
 
 STACK_DEPTH = 8  # csrc/shade.cuh STACK_DEPTH, integrators/advanced.py's
 SF_ROWS = 15  # csrc/shade.cuh SF_ROWS: N 0-2, brdf 3-5, o 6-8, d 9-11, tint
@@ -63,36 +65,6 @@ _ARGS_CHECKED = False
 _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 F32, I64, BOOL, U8 = torch.float32, torch.int64, torch.bool, torch.uint8
-
-
-def _lanes(n: int, dev, items) -> None:
-    """Each (name, tensor, dtype) is an (n,) tensor of that dtype on
-    ``dev`` with unit stride."""
-    for name, x, dt in items:
-        if not isinstance(x, torch.Tensor) or x.dtype != dt \
-                or x.shape != (n,) or x.stride() != (1,) or x.device != dev:
-            got = (f"{x.dtype} {tuple(x.shape)} stride {x.stride()} on "
-                   f"{x.device}" if isinstance(x, torch.Tensor)
-                   else type(x).__name__)
-            raise ValueError(f"{name} must be a unit-stride ({n},) {dt} "
-                             f"tensor on {dev}, got {got}")
-
-
-def _table(name: str, x, dt, shape, dev) -> None:
-    if x.dtype != dt or x.device != dev or not x.is_contiguous() or any(
-            want is not None and got != want
-            for got, want in zip(x.shape, shape)) or x.dim() != len(shape):
-        raise ValueError(f"{name} must be a contiguous {dt} tensor of shape "
-                         f"{shape} on {dev}, got {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}")
-
-
-def _vec(name: str, v: Vec3, dt=F32):
-    return [(f"{name}.{c}", x, dt) for c, x in zip("xyz", v)]
-
-
-def _ptrs(v: Vec3):
-    return (_P * 3)(*(x.data_ptr() for x in v))
 
 
 def _scene(ps, dev) -> dict:

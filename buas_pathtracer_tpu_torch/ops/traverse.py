@@ -36,7 +36,10 @@ BIG_T = 3.0e38
 
 
 class Hit(NamedTuple):
-    """Result of a closest-hit query (one entry per ray)."""
+    """Result of a closest-hit query (one entry per ray).  ``n`` is defined
+    where ``hit_id >= 0``: on a lane that hit nothing the card's
+    ``hit_record`` kernel writes (0, 0, 0) and the plain versions a normal
+    of row 0, which no caller reads."""
 
     t: torch.Tensor
     hit_id: torch.Tensor  # -1 = miss, [0,K) = primitive, K+i = plane i

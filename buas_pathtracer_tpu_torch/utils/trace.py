@@ -66,7 +66,9 @@ the device time of the kernels launched inside it
 
 A wait is a ``pt.wait.<site>`` span of its own.  ``pt.bounce`` less its
 child spans is the shading (on the card the ``shade_hit`` and
-``shade_next`` kernels, one launch each a bounce).  ``pt.walk`` is one walk
+``shade_next`` kernels, one launch each a bounce).  ``pt.intersect`` is
+the closest-hit query: the plane pass, its walk and the hit record (on the
+card the ``hit_record`` kernel, one launch a query).  ``pt.walk`` is one walk
 of the row BVH (``wide_traverse`` or ``split_traverse``) with the buffers it
 fills (a counted split walk's ``WalkCounts`` among them); the other
 integrators' and the viewer's queries make it too.
@@ -95,7 +97,8 @@ RING = 1024  # frame records kept
 _RANGE = torch._C._profiler._RecordFunctionFast
 # the port's own kernels, by launch counter
 KERNELS = ("closest", "occlusion", "split_closest", "split_occlusion",
-           "post_rgba8", "tristream_closest", "shade_hit", "shade_next")
+           "post_rgba8", "tristream_closest", "shade_hit", "shade_next",
+           "hit_record")
 
 
 class _Null:

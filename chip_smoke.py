@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --turns    # the measurements behind the defaults
     python3 chip_smoke.py --shade    # the shading kernels alone ([16])
+    python3 chip_smoke.py --hit      # the hit record alone ([16h])
 
 Builds the port's CUDA kernels from ``buas_pathtracer_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card, renders
@@ -14,9 +15,11 @@ gives it, and the bounce's two shading kernels at bounces 0 and 1 of that
 frame against their plain version ([16]; ``--shade`` runs only these after
 the build), then does the same for the big-scene path: the stress frame
 (``BENCH_SCENE=stress``: 655,360 triangles, 1920x1080, 1 spp, 6 bounces)
-through the split-table walk, and the dense triangle-stream entry point on
-the bench scene.  Then the integrator layer: 64x64 staged frames (two
-stages chained) identical through the kernels, through the plain versions
+through the split-table walk, the closest-hit queries' hit record
+(``hit_record``) at bounces 0 and 1 of the bench and stress frames against
+its plain version ([16h]; ``--hit`` runs only these after the build), and
+the dense triangle-stream entry point on the bench scene.  Then the
+integrator layer: 64x64 staged frames (two stages chained) identical through the kernels, through the plain versions
 and in the single loop; the env-lit hero frame (``tools/hero_render.py``'s
 scene with ``gallery/hero_sky.hdr``, 1920x1080, 8 bounces, env NEE) packed
 and rendered through ``device=None`` by the port's default loop and by the
@@ -950,6 +953,119 @@ def run_shade(ps, scene, dev, card, report, W=1920, H=1080):
                 device_ms=dev_ms, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes", bytes=nbytes,
                 **ptxas_fields(report, f"{name}_kernel")))
+    return records
+
+
+def record_hit_queries(ps, scene, dev, W=1920, H=1080, count=2):
+    """Render one frame with ``hit_kernel.hit_record`` wrapped, keeping
+    copies of the inputs of its first ``count`` calls (the closest-hit
+    queries of bounces 0 and 1)."""
+    import torch
+    from buas_pathtracer_tpu_torch.core.vec import Vec3
+    from buas_pathtracer_tpu_torch.ops import hit_kernel
+    from buas_pathtracer_tpu_torch.runtime import film
+    from buas_pathtracer_tpu_torch.runtime.render import render_frame
+    kept, real = [], hit_kernel.hit_record
+
+    def rec(ps_, o, d, plane_idx, *walked):
+        if len(kept) < count:
+            kept.append((Vec3(*(c.clone() for c in o)),
+                         Vec3(*(c.clone() for c in d)), plane_idx.clone(),
+                         *(x.clone() for x in walked)))
+        return real(ps_, o, d, plane_idx, *walked)
+
+    hit_kernel.hit_record = rec
+    try:
+        render_frame(ps, scene.settings, scene.camera,
+                     film.new_accumulation_buffer(H, W, dev), 7, h=H, w=W,
+                     n_lights=scene.n_lights, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        hit_kernel.hit_record = real
+    return kept
+
+
+def hit_record_bytes(prim, tri, plane_idx):
+    """The least bytes of one hit_record launch (csrc/hit.cu's note): each
+    lane's own reads and writes by its class, and each distinct row and
+    table entry the lanes read once.  Returns (bytes, lanes by class)."""
+    import torch
+    hit = prim >= 0
+    mesh, ana = hit & (tri >= 0), hit & (tri < 0)
+    plane = ~hit & (plane_idx >= 0)
+    cls = {"mesh": int(mesh.sum()), "analytic": int(ana.sum()),
+           "plane": int(plane.sum()), "none": int((~hit & ~plane).sum())}
+    n = int(prim.shape[0])
+    lanes = (80 * n + 12 * cls["mesh"] + 4 * cls["analytic"]
+             + 8 * (cls["plane"] + cls["none"]))
+    rows = 64 * (torch.unique(tri[mesh]).numel()
+                 + torch.unique(prim[ana]).numel())
+    tables = (8 * torch.unique(prim[hit]).numel()
+              + 20 * torch.unique(plane_idx[plane]).numel())
+    return lanes + rows + tables, cls
+
+
+def run_hit(cells, dev, card, report):
+    """[16h] The hit record (``hit_record``) on the closest-hit queries of
+    bounces 0 and 1 of each cell's 1920x1080 frame: held to the plain
+    version (every field bit for bit, the normal on every lane that hit),
+    timed (its device time under the profiler with the L2 warm and flushed,
+    and CUDA events around the wrapper) beside the plain version's time
+    and its byte bound."""
+    import torch
+    from buas_pathtracer_tpu_torch.ops import hit_kernel
+    records = []
+    for name, ps, scene in cells:
+        for b, wave in enumerate(record_hit_queries(ps, scene, dev)):
+            o, d, plane_idx, t, prim, tri, bv, bw, stats = wave
+
+            def kern():
+                return hit_kernel.hit_record(ps, o, d, plane_idx, t, prim,
+                                             tri, bv, bw, stats)
+
+            def plain():
+                return hit_kernel.hit_record_plain(
+                    ps, o, d, plane_idx, t, prim.long(), tri.long(), bv, bw,
+                    stats)
+
+            what = f"[16h] hit_record {name} bounce {b}"
+            k, p = kern(), plain()
+            torch.cuda.synchronize()
+            found = p.hit_id >= 0
+            same = all(torch.equal(getattr(k, f), getattr(p, f))
+                       for f in ("hit_id", "mat_id", "tri")) and all(
+                torch.equal(x.view(torch.int32), y.view(torch.int32))
+                for x, y in zip(k.p, p.p)) and all(
+                torch.equal(x.view(torch.int32)[found],
+                            y.view(torch.int32)[found])
+                for x, y in zip(k.n, p.n)) and all(
+                bool((x[~found] == 0).all()) for x in k.n)
+            if not same:
+                raise AssertionError(f"{what}: the kernel differs from the "
+                                     "plain version")
+            nbytes, cls = hit_record_bytes(prim, tri, plane_idx)
+            dev_ms = device_ms(kern, KERNEL_REPS, "hit_record_kernel")
+            cold_ms = device_ms(kern, KERNEL_REPS, "hit_record_kernel",
+                                flush=True)
+            if dev_ms is None or cold_ms is None:
+                raise AssertionError("the profiler recorded no hit_record")
+            ms = cuda_ms(kern, KERNEL_REPS)
+            plain_ms = cuda_ms(plain, PLAIN_REPS)
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            n = int(prim.shape[0])
+            log(f"{what}: {n} lanes {cls}: device time {dev_ms:.4f} ms, L2 "
+                f"cold {cold_ms:.4f} ms, events {ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {bound:.4f} ms "
+                f"({nbytes / 1e6:.1f} MB), equal to plain ({card})")
+            records.append(dict(
+                k=f"H{b}", name=f"hit_record {name} bounce {b}",
+                route="cuda", source="buas_pathtracer_tpu_torch/csrc/hit.cu",
+                replaces="no TPU kernel (XLA computes the TPU's hit record)",
+                lanes=n, classes=cls,
+                parity="equal to plain (bit for bit; n where hit_id >= 0)",
+                device_ms=dev_ms, device_ms_cold_l2=cold_ms, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                bytes=nbytes, **ptxas_fields(report, "hit_record_kernel")))
     return records
 
 
@@ -1926,6 +2042,8 @@ def launch_key(name):
         return "tristream_closest"
     if name.startswith("shade_"):
         return name.split()[0]
+    if name.startswith("hit_record"):
+        return "hit_record"
     mode = "occlusion" if "occlusion" in name else "closest"
     return ("split_" if name.startswith("split") else "") + mode
 
@@ -2739,7 +2857,7 @@ def main(argv):
                   "split_traverse_closest", "split_traverse_occlusion",
                   "tristream_closest", "tristream_finish",
                   "post_rgba8_kernel", "shade_hit_kernel",
-                  "shade_next_kernel"):
+                  "shade_next_kernel", "hit_record_kernel"):
         ptxas_fields(report, kname)  # fails when the report lacks one
     sass = sass_report()
     log(f"[2] cuobjdump -sass: "
@@ -2750,6 +2868,20 @@ def main(argv):
     log(f"[2] native builders built+loaded in {time.perf_counter() - t0:.2f} s")
     if "--turns" in argv:
         return run_turns(dev, card)
+    if "--hit" in argv:
+        from buas_pathtracer_tpu_torch.models.scenes import build_stress_scene
+        cells = []
+        for name, build in (("bench", build_bench_scene),
+                            ("stress", build_stress_scene)):
+            sc = build(1920, 1080)
+            cells.append((name, sc.pack(device=dev), sc))
+        hit = run_hit(cells, dev, card, report)
+        print(json.dumps({"kernels": hit, "card": card}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--shade" in argv:
         bench = build_bench_scene(1920, 1080)
         shade = run_shade(bench.pack(device=dev), bench, dev, card, report)
@@ -3030,6 +3162,9 @@ def main(argv):
     stress_records, stress, stress_ps, stress_scene = run_stress(dev, card,
                                                                  report)
     records += stress_records
+    records += run_hit([("bench", ps, scene),
+                        ("stress", stress_ps, stress_scene)], dev, card,
+                       report)
 
     # ---- 15. the dense triangle stream on the bench scene ----
     records.append(run_tristream(ps, sets, card, report, sass))
