@@ -14,20 +14,6 @@ Ray state is SoA ``(N,)`` tensors advanced one bounce per iteration of a
 Python loop under a live mask; the loop ends after ``max_bounce_count``
 bounces or when no ray is alive.
 
-Staged wavefront compaction (the JAX package's ``BUAS_TWO_PHASE`` /
-``BUAS_PHASE_BLOCKS``, advanced.py:166-202, 570-680): once the live count
-fits the next stage width (at bounce >= 1), the loop breaks, the survivors
-are sorted by their ``_compact_key`` and packed into a prefix of that width
-with one gather of the packed state, and the same bounce body finishes the
-remaining bounces there, walking in that order, and recursing down the
-widths.  Each stage's totals are restored (not added) into the lanes they
-came from, so the image is bit-identical to the single loop: after bounce 0
-every draw comes from the carried xorshift state, and the arithmetic and
-the accumulation order of each lane are unchanged.  The widths are in units
-of 1024 lanes.  The JAX package also re-sorts the stage after every bounce;
-the port sorts at the stage entry only, since on the H100 a key sort and
-its gathers cost more than the walk gains from the order (PERF.md).
-
 A bounce is the closest-hit walk, the shading up to next-event
 estimation (``_shade_hit``), NEE's samples and shadow walk (``_nee``) and
 the rest of the shading (``_shade_next``).  On the card the two shading
@@ -36,19 +22,11 @@ halves are the CUDA kernels ``shade_hit`` and ``shade_next``
 state in place (the state is the loop's own from its entry: the caller's
 rays and sampler are not written); ``_shade_hit_plain`` and
 ``_shade_next_plain`` are their plain version, which CPU tensors take.
-
-The kernels took ~4,300 launches off a bench frame's ~9,300.  Before them
-the frame was bound by the host's launches: staging cut the device time by
-more than half and the frame time not at all.  Now the host's issue time
-and the device's busy time are about equal (76 and 92 ms of a ~105 ms
-1080p bench frame on the H100; PERF.md), and whether staging pays is open.
-The single loop stays the default (``BUAS_TWO_PHASE=1`` stages).
 """
 
 from __future__ import annotations
 
-import os
-from typing import List, NamedTuple
+from typing import NamedTuple
 
 import torch
 
@@ -57,27 +35,17 @@ from ..core import sampler as smp
 from ..core.vec import (EPSILON, PI, Vec3, dot, exp as vexp, full_like, lerp,
                         max3, normalize, reflect, v3, where as vwhere)
 from ..models.scene import PackedScene, SceneSettings
-from ..ops import dispatch, envmap, shade_kernel, traverse_wide
+from ..ops import envmap, shade_kernel, traverse_wide
 from ..ops.shading import (cbrt, evaluate_checker, fresnel_dielectric,
                            map_to_cosine_weighted_hemisphere,
                            map_to_hemisphere, refract, sample_on_unit_sphere)
-from ..ops.traverse import BIG_T, _intersect_planes
+from ..ops.traverse import BIG_T
 from ..utils import trace
 from .common import (has_env, light_pick_pdf, light_radius_of_prim,
                      light_rows, pick_random_light_slot,
                      random_point_on_light_rows, sample_sky, slot_to_prim)
 
 STACK_DEPTH = 8  # reference uses 64 (integrators.cpp:602)
-
-# BUAS_TWO_PHASE and BUAS_PHASE_BLOCKS (x1024 lanes) when unset.  While
-# the H100's frame was host-bound (before the shading kernels), the single
-# loop and every staged width measured within the frames' spread across
-# the bench, stress and hero frames: the single loop, the conservative
-# choice, is the default; staged, the widths that left the card the least
-# device time (PERF.md; to be measured again, ROADMAP.md)
-DEFAULT_TWO_PHASE = "0"
-DEFAULT_PHASE_BLOCKS = "1024,256"
-
 
 class _Flags(NamedTuple):
     max_bounces: int
@@ -93,8 +61,7 @@ class _Flags(NamedTuple):
 
 
 class _State(NamedTuple):
-    """Per-lane bounce state.  ``live_r``: the lanes that walk; alive,
-    and at a stage's entry also not proven to miss."""
+    """Per-lane bounce state."""
 
     alive: torch.Tensor
     o: Vec3
@@ -106,70 +73,6 @@ class _State(NamedTuple):
     stack_at: torch.Tensor
     is_spec: torch.Tensor
     prev_n: Vec3
-    live_r: torch.Tensor
-
-
-def stage_widths(n: int) -> List[int]:
-    """The stage widths in lanes: ``BUAS_PHASE_BLOCKS`` (x1024), each kept
-    only when narrower than the one before (the first: the wave, ``n``)."""
-    widths: List[int] = []
-    spec = os.environ.get("BUAS_PHASE_BLOCKS", DEFAULT_PHASE_BLOCKS)
-    for tok in spec.split(","):
-        tok = tok.strip()
-        if tok:
-            wd = int(tok) * 1024
-            if wd < (widths[-1] if widths else n):
-                widths.append(wd)
-    return widths
-
-
-def two_phase(settings: SceneSettings, sampler: smp.Sampler, n: int) -> bool:
-    """The JAX package's gate (advanced.py:188-190): ``BUAS_TWO_PHASE`` 1
-    (default ``DEFAULT_TWO_PHASE``), more than 2 bounces, a stage narrower
-    than the wave, and one sample index for the pass (the first-bounce
-    bases then need no per-lane sample index inside a stage)."""
-    return (os.environ.get("BUAS_TWO_PHASE", DEFAULT_TWO_PHASE) == "1"
-            and int(settings.max_bounce_count) > 2
-            and bool(stage_widths(n))
-            and not isinstance(sampler.sample_index, torch.Tensor))
-
-
-def _stage_live(ps: PackedScene, o: Vec3, d: Vec3, alive):
-    """Alive and not proven to miss everything: the root prefilter, or a
-    plane hit (planes lie outside the BVH, so the prefilter cannot see
-    them)."""
-    big = torch.full_like(o.x, BIG_T)
-    keep = dispatch.root_prefilter(ps.wide_rows, o, d, big)
-    keep = keep | (_intersect_planes(ps, o, d, big)[1] >= 0)
-    return alive & keep
-
-
-def _stage_sort_key(ps: PackedScene, o: Vec3, d: Vec3, alive):
-    """(key, live_r): the m6d compact key for live lanes; lanes proven to
-    miss sort just before the dead tail, so the live ones stay dense while
-    these still collect their sky miss next bounce."""
-    live_r = _stage_live(ps, o, d, alive)
-    key = dispatch._compact_key(o, d, None, ps.scene_lo, ps.scene_hi)
-    key = torch.where(live_r, key, dispatch.PREFILTERED_KEY)
-    return torch.where(alive, key, dispatch.DEAD_KEY), live_r
-
-
-def _permute_state(ids, st: _State) -> _State:
-    """The lanes ``ids`` of the whole state, moved with two gathers: one of
-    a (15, N) float32 pack, one of a (13, N) int64 pack holding the uint32
-    RNG state, the stack and the flags, so no bit is lost."""
-    f = torch.stack([*st.o, *st.d, *st.tp, *st.total, *st.prev_n]
-                    ).index_select(1, ids)
-    i = torch.cat([torch.stack([st.s.state, st.stack_at,
-                                st.is_spec.to(torch.int64),
-                                st.alive.to(torch.int64),
-                                st.live_r.to(torch.int64)]), st.stack]
-                  ).index_select(1, ids)
-    v = [Vec3(f[3 * k], f[3 * k + 1], f[3 * k + 2]) for k in range(5)]
-    return st._replace(
-        o=v[0], d=v[1], tp=v[2], total=v[3], prev_n=v[4],
-        s=st.s._replace(state=i[0]), stack_at=i[1], is_spec=i[2] != 0,
-        alive=i[3] != 0, live_r=i[4] != 0, stack=i[5:])
 
 
 def _flags(ps: PackedScene, settings: SceneSettings, n_lights: int):
@@ -543,7 +446,7 @@ def _shade_next_plain(ps: PackedScene, f: _Flags, st: _State, sh: _Shade,
         alive=cont, o=vwhere(cont, new_o, o), d=vwhere(cont, new_d, d),
         tp=throughput, total=total, s=s,
         is_spec=torch.where(cont, new_specular, is_specular),
-        prev_n=vwhere(cont, N, prev_n), live_r=cont)
+        prev_n=vwhere(cont, N, prev_n))
     return st, stats
 
 
@@ -565,17 +468,15 @@ def _shade_next(ps: PackedScene, f: _Flags, st: _State, sh: _Shade, light,
     if st.alive.device.type != "cuda":
         return _shade_next_plain(ps, f, st, sh, light, env, stats, bounce)
     shade_kernel.shade_next(ps, f, st, sh.rest, light, env, stats, bounce)
-    return st._replace(live_r=st.alive), stats
+    return st, stats
 
 
 def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
-    """One bounce of every lane; returns the new state and stats.  Lanes
-    that do not walk (dead, or prefiltered at a stage's entry) pass through
-    the traversal with max_t = -1; the prefiltered ones shade as sky
-    misses."""
+    """One bounce of every lane; returns the new state and stats.  Dead
+    lanes pass through the traversal with max_t = -1."""
     with trace.span("pt.intersect"):
         hit = traverse_wide.intersect_scene(
-            ps, st.o, st.d, max_t=torch.where(st.live_r, BIG_T, -1.0))
+            ps, st.o, st.d, max_t=torch.where(st.alive, BIG_T, -1.0))
     st, stats, sh = _shade_hit(ps, f, st, hit, stats, bounce)
     with trace.span("pt.nee"):
         s, light, env = _nee(ps, f, st.s, hit.p, sh.N, sh.nee_lanes, bounce)
@@ -583,60 +484,18 @@ def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
                        bounce)
 
 
-def _loop(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int,
-          break_width):
-    """Bounces while any lane lives, up to ``max_bounces``; with a
-    ``break_width``, stops before a bounce >= 1 whose live count fits it.
-    Each bounce goes into the frame record (``utils/trace.py``).  Returns
-    (state, stats, bounce)."""
-    while bounce < f.max_bounces:
+def _loop(ps: PackedScene, f: _Flags, st: _State, stats):
+    """Bounces while any lane lives, up to ``max_bounces``.  Each bounce
+    goes into the frame record (``utils/trace.py``).  Returns (state,
+    stats)."""
+    for bounce in range(f.max_bounces):
         with trace.span("pt.bounce"):
             nlive = trace.wait("live_count", int, st.alive.sum())
-            if nlive == 0 or (break_width is not None and bounce >= 1
-                              and nlive <= break_width):
+            if nlive == 0:
                 break
             trace.bounce(bounce, int(st.alive.shape[0]), nlive)
             st, stats = _bounce(ps, f, st, stats, bounce)
-        bounce += 1
-    return st, stats, bounce
-
-
-def _run_stage(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int,
-               widths: List[int], i: int):
-    """Finish the bounces of ``st`` at stage width ``widths[i]`` (and
-    narrower stages after it).  Returns (totals at ``st``'s width,
-    stats)."""
-    nbl = widths[i]
-    with trace.span("pt.stage"):
-        key, live_r = _stage_sort_key(ps, st.o, st.d, st.alive)
-        ids = torch.argsort(key, stable=True)[:nbl]
-        sb = _permute_state(ids, st._replace(live_r=live_r))
-        dev = ids.device
-        s2 = st.s
-        sb = sb._replace(
-            # pixel coordinates and the first-bounce bases are never read
-            # after bounce 0: zero placeholders of the stage's width
-            s=smp.Sampler(
-                x=torch.zeros(nbl, dtype=torch.int64, device=dev),
-                y=torch.zeros(nbl, dtype=torch.int64, device=dev),
-                sample_index=s2.sample_index, state=sb.s.state,
-                bn=torch.zeros((0, nbl), dtype=torch.float32, device=dev),
-                pre=torch.zeros((s2.pre.shape[0], nbl), dtype=torch.float32,
-                                device=dev)))
-    next_w = widths[i + 1] if i + 1 < len(widths) else None
-    sb, stats, bounce = _loop(ps, f, sb, stats, bounce, next_w)
-    if next_w is not None and bounce < f.max_bounces and trace.wait(
-            "live_any", bool, sb.alive.any()):
-        tb, stats = _run_stage(ps, f, sb, stats, bounce, widths, i + 1)
-    else:
-        tb = sb.total
-    # restore, not add: the stage totals already hold each lane's gathered
-    # total, so the single loop's accumulation order is kept; lane j of the
-    # stage came from parent lane ids[j]
-    with trace.span("pt.stage"):
-        out = torch.stack([st.total.x, st.total.y, st.total.z]).index_copy_(
-            1, ids, torch.stack([tb.x, tb.y, tb.z]))
-    return Vec3(out[0], out[1], out[2]), stats
+    return st, stats
 
 
 def _entry_state(ray_o: Vec3, ray_d: Vec3, sampler: smp.Sampler) -> _State:
@@ -656,26 +515,15 @@ def _entry_state(ray_o: Vec3, ray_d: Vec3, sampler: smp.Sampler) -> _State:
         s=sampler._replace(state=sampler.state.clone()),
         stack=ints[1:], stack_at=ints[0],
         is_spec=flags[1],  # is_specular_bounce starts true (:615)
-        prev_n=v[4], live_r=flags[0])
+        prev_n=v[4])
 
 
 def advanced(ps: PackedScene, settings: SceneSettings, sampler: smp.Sampler,
              ray_o: Vec3, ray_d: Vec3, n_lights: int = 0):
     """Returns (color Vec3, sampler, stats (3,) float32 [rays, node visits,
-    triangle tests]).  With staged compaction the sampler is the one at the
-    first stage's entry, as in the JAX package."""
-    n = ray_o.x.shape[0]
-    dev = ray_o.x.device
+    triangle tests])."""
     f = _flags(ps, settings, n_lights)
-    staged = two_phase(settings, sampler, n)
-    widths = stage_widths(n) if staged else []
-
     st = _entry_state(ray_o, ray_d, sampler)
-    stats = torch.zeros(3, dtype=torch.float32, device=dev)
-    st, stats, bounce = _loop(ps, f, st, stats, 0,
-                              widths[0] if staged else None)
-    total = st.total
-    if staged and bounce < f.max_bounces and trace.wait(
-            "live_any", bool, st.alive.any()):
-        total, stats = _run_stage(ps, f, st, stats, bounce, widths, 0)
-    return total, st.s, stats
+    stats = torch.zeros(3, dtype=torch.float32, device=ray_o.x.device)
+    st, stats = _loop(ps, f, st, stats)
+    return st.total, st.s, stats

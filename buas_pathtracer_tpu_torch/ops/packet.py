@@ -7,9 +7,9 @@ launches ``csrc/wide_traverse.cu``; ``split_traverse`` walks the split tables
 of big scenes (``_kernel_v7`` and ``_kernel_v4``, which compute one function)
 and launches ``csrc/split_traverse.cu``.  Each wrapper launches its kernel
 for CUDA tensors and runs its plain version for CPU tensors; there is no
-fallback from one to the other.  The wave ordering in front of them (sort
-keys, root prefilter, routes) is ``ops/dispatch.py``; the JAX package's
-compaction rungs and ladders are TPU budgets and have no counterpart.
+fallback from one to the other.  Waves reach them in the caller's order
+through ``ops/traverse_wide.py``; the JAX package's compaction rungs and
+ladders are TPU budgets and have no counterpart.
 
 Kernel and plain version walk each ray with its own stack, in the same
 order, with the same arithmetic (the kernels are built with ``-fmad=false``),

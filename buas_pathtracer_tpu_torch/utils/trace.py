@@ -15,10 +15,9 @@ call runs, and nothing in between:
   (``.cpu()``, ``int()`` / ``bool()`` of a device tensor) or a copy of host
   values to the card (which synchronises the stream from pageable memory).
   The sites: ``camera`` (``camera_on``'s scalars), ``sampler_tables``,
-  ``live_count``, ``live_any`` (the staged loop and the other
-  integrators), ``key_tables`` (staged sort keys), ``stats``,
-  ``dither_tile`` and ``readback``.  They are counted on the CPU too,
-  where they do not block: the count says what the card waits on.
+  ``live_count``, ``live_any`` (the other integrators' loops), ``stats``,
+  ``dither_tile`` and ``readback``.  They are counted on the CPU too, where
+  they do not block: the count says what the card waits on.
 * ``host_ns``: the host time inside ``render_one_frame`` and
   ``display_rgba8``; less ``wait_ns`` it is the host's issue time (Python,
   dispatch, launches).
@@ -58,7 +57,6 @@ the device time of the kernels launched inside it
                        , pt.bounce > pt.wait.live_count,
                                      pt.intersect > pt.walk,
                                      pt.nee > pt.walk
-                       , pt.stage (staged sort / permute / restore)
                        , pt.camera                   (vignette, untile)
                        , pt.film
              , pt.wait.stats

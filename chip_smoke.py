@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py            # the smoke run
-    python3 chip_smoke.py --turns    # the measurements behind the defaults
     python3 chip_smoke.py --shade    # the shading kernels alone ([16])
     python3 chip_smoke.py --hit      # the hit record alone ([16h])
 
@@ -19,16 +18,11 @@ through the split-table walk, the closest-hit queries' hit record
 (``hit_record``) at bounces 0 and 1 of the bench and stress frames against
 its plain version ([16h]; ``--hit`` runs only these after the build), and
 the dense triangle-stream entry point on the bench scene.  Then the
-integrator layer: 64x64 staged frames (two stages chained) identical through the kernels, through the plain versions
-and in the single loop; the env-lit hero frame (``tools/hero_render.py``'s
-scene with ``gallery/hero_sky.hdr``, 1920x1080, 8 bounces, env NEE) packed
-and rendered through ``device=None`` by the port's default loop and by the
-other one (staged or single),
-with its bounces' widths and live counts, its breakdown and its waves held
-to the plain walk; staged and single-loop 1080p frames bit-identical on the
-hero, bench and stress frames (the stress frame on its split tables), and
-timed against each other in turns; Whitted, Ground Truth, Normals and
-Distances at 1080p and the Whitted and Normals goldens;
+integrator layer: the env-lit hero frame (``tools/hero_render.py``'s scene
+with ``gallery/hero_sky.hdr``, 1920x1080, 8 bounces, env NEE) packed and
+rendered through ``device=None``, with its bounces' live counts, its
+breakdown and its waves held to the plain walk; Whitted, Ground Truth,
+Normals and Distances at 1080p and the Whitted and Normals goldens;
 the blue-noise sampler built on the card equal to the CPU's, and a bench
 frame with it.  Then the session layer: the twelve built-in scenes through
 ``load_scene`` and ``ProgressiveRenderer(device=None)`` at 1920x1080,
@@ -59,13 +53,6 @@ kernel records.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; any failed phase
 raises and the script exits non-zero without that line.  Without a CUDA
 card, or without the port's package beside it, it exits non-zero at once.
-
-``--turns`` builds the kernels, packs the bench, stress and hero frames and
-runs only the measurements that chose the port's defaults: the single loop
-and the stage widths in turns on the three frames ([T1]), and on waves
-recorded from the bench and hero frames the natural against the key-sorted
-wave route and the hero's light + env shadow queries as one 2N wave against
-one wave each ([T2]).
 
 Imports nothing of JAX or of the JAX package ``buas_pathtracer_tpu``.
 """
@@ -819,8 +806,7 @@ def clone_state(st):
         alive=st.alive.clone(), o=v(st.o), d=v(st.d), tp=v(st.tp),
         total=v(st.total), s=st.s._replace(state=st.s.state.clone()),
         stack=st.stack.clone(), stack_at=st.stack_at.clone(),
-        is_spec=st.is_spec.clone(), prev_n=v(st.prev_n),
-        live_r=st.live_r.clone())
+        is_spec=st.is_spec.clone(), prev_n=v(st.prev_n))
 
 
 def states_equal(a, b, entry, what):
@@ -1414,30 +1400,19 @@ def run_tristream(ps, sets, card, report, sass):
 
 
 # ---------------------------------------------------------------------------
-# the integrator layer: the hero frame, staged compaction, wave routes, the
-# other integrators and the blue-noise sampler
+# the integrator layer: the hero frame, the other integrators and the
+# blue-noise sampler
 # ---------------------------------------------------------------------------
 
-# stage configurations timed in turns by ``--turns``: the single loop and
-# stage widths (x1024 lanes)
-STAGE_CONFIGS = ("single loop", "512,128", "256,64", "1024,256", "1024")
-TURN_FRAMES = 3
-STAGE_PASSES = 6
-
-
 class env_vars:
-    """Set (or with None, unset) environment variables inside a block."""
+    """Set environment variables inside a block."""
 
     def __init__(self, **kv):
         self.kv = kv
 
     def __enter__(self):
         self.old = {k: os.environ.get(k) for k in self.kv}
-        for k, v in self.kv.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        os.environ.update(self.kv)
 
     def __exit__(self, *exc):
         for k, v in self.old.items():
@@ -1447,30 +1422,17 @@ class env_vars:
                 os.environ[k] = v
 
 
-def stage_env(config):
-    """The environment of a stage configuration: "single loop", "default"
-    (staged at the code's default widths) or widths such as "512,128"."""
-    if config == "single loop":
-        return env_vars(BUAS_TWO_PHASE="0")
-    return env_vars(BUAS_TWO_PHASE="1", BUAS_PHASE_BLOCKS=(
-        None if config == "default" else config))
-
-
-def time_frames(ps, scene, dev, n, first, w=1920, h=1080, settings=None,
-                warm=0):
+def time_frames(ps, scene, dev, n, first, w=1920, h=1080, settings=None):
     """(mean ms, rays of the last frame, accumulation) of ``n`` frames
-    into a fresh accumulation buffer, host clock, synchronised, after
-    ``warm`` untimed frames (which refill the allocator's cache with this
-    configuration's tensor sizes when another configuration ran before)."""
+    into a fresh accumulation buffer, host clock, synchronised."""
     import torch
     from buas_pathtracer_tpu_torch.runtime import film
     from buas_pathtracer_tpu_torch.runtime.render import render_frame
     settings = settings or scene.settings
     accum = film.new_accumulation_buffer(h, w, dev)
-    for k in range(warm + n):
-        if k == warm:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(n):
         accum, stats = render_frame(ps, settings, scene.camera, accum,
                                     first + k, h=h, w=w,
                                     n_lights=scene.n_lights,
@@ -1543,52 +1505,10 @@ def wide_wave_records(ps, waves, wave_calls, launches, card, report, tag,
     return records
 
 
-def run_staged_small(dev):
-    """Phase 17: at 64x64 on the bench and hero scenes, with stages forced
-    small enough that two chain, the staged frame through the kernels, the
-    staged frame through the plain versions and the single-loop frame are
-    identical."""
-    from buas_pathtracer_tpu_torch.models.scenes import (build_bench_scene,
-                                                         build_hero_scene)
-    from buas_pathtracer_tpu_torch.ops import packet
-    from buas_pathtracer_tpu_torch.runtime import film
-    for name, build in (("bench", build_bench_scene),
-                        ("hero", build_hero_scene)):
-        sc = build(64, 64)
-        ps = sc.pack(device=dev)
-
-        def img():
-            return film.resolve(time_frames(ps, sc, dev, 1, 3, 64, 64)[2]
-                                ).cpu().numpy()
-
-        with stage_env("2,1"):
-            shape = bounce_shape(img)
-            img_k = img()
-            real = packet.wide_traverse
-            packet.wide_traverse = packet.wide_traverse_plain
-            try:
-                img_p = img()
-            finally:
-                packet.wide_traverse = real
-        with stage_env("single loop"):
-            img_s = img()
-        widths = sorted({w for _, w, _ in shape})
-        same = (np.array_equal(img_k, img_p), np.array_equal(img_k, img_s))
-        log(f"[17] 64x64 {name} scene, stages 2,1: bounces (bounce, lanes, "
-            f"live) {shape}; staged kernels vs staged plain identical "
-            f"{same[0]}, staged vs single loop identical {same[1]}, mean "
-            f"{float(img_k.mean()):.4f}")
-        if len(widths) < 3:
-            raise AssertionError(f"{name}: two stages did not chain: {shape}")
-        if not np.isfinite(img_k).all() or not all(same):
-            raise AssertionError(f"{name}: staged 64x64 frames differ")
-
-
 def run_hero(dev, card, report):
     """Phases 18 and 19: the hero scene packed and rendered at 1920x1080
-    through ``device=None``, 1 spp, 8 bounces, env NEE: by the port's
-    default loop and by the other loop (staged or single).  Returns
-    (kernel records, numbers, ps, scene)."""
+    through ``device=None``, 1 spp, 8 bounces, env NEE.  Returns (kernel
+    records, numbers, ps, scene)."""
     import torch
     from buas_pathtracer_tpu_torch.integrators.common import has_env
     from buas_pathtracer_tpu_torch.models.scenes import build_hero_scene
@@ -1624,86 +1544,60 @@ def run_hero(dev, card, report):
 
     waves = record_waves(packet, "wide_traverse", one)
     real = packet.wide_traverse
-    runs = {}
-    # the port's default loop, then the other one (the staged loop at the
-    # default widths, or the single loop); each path's launch counts are
-    # set to 0 just before its timed frames and read just after
-    from buas_pathtracer_tpu_torch.integrators import advanced
-    default_staged = advanced.DEFAULT_TWO_PHASE == "1"
-    other = (("single", "single loop") if default_staged
-             else ("staged", "default"))
-    for label, config in (("default", None), other):
-        with (stage_env(config) if config else
-              env_vars(BUAS_TWO_PHASE=None, BUAS_PHASE_BLOCKS=None)):
-            shape = bounce_shape(lambda: one(1))
-            calls = {"closest": 0}
-            wave_calls = {"primary": 0, "bounce": 0, "shadow": 0}
+    shape = bounce_shape(lambda: one(1))
+    calls = {"closest": 0}
+    wave_calls = {"primary": 0, "bounce": 0, "shadow": 0}
 
-            def counter(rows, depth, o, d, t0_, ign, occlusion):
-                if occlusion:
-                    wave_calls["shadow"] += 1
-                else:
-                    wave_calls["bounce" if calls["closest"]
-                               else "primary"] += 1
-                    calls["closest"] += 1
-                return real(rows, depth, o, d, t0_, ign, occlusion)
+    def counter(rows, depth, o, d, t0_, ign, occlusion):
+        if occlusion:
+            wave_calls["shadow"] += 1
+        else:
+            wave_calls["bounce" if calls["closest"] else "primary"] += 1
+            calls["closest"] += 1
+        return real(rows, depth, o, d, t0_, ign, occlusion)
 
-            n_frames = 3
-            reset_launches()
-            packet.wide_traverse = counter
-            try:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for f_i in range(n_frames):
-                    calls["closest"] = 0
-                    accum, stats = render_frame(
-                        ps, settings, scene.camera, accum, 2 + f_i, h=H, w=W,
-                        n_lights=scene.n_lights, has_medium=scene.has_medium)
-                rays = float(stats[0])
-                torch.cuda.synchronize()
-                frame_ms = (time.perf_counter() - t0) / n_frames * 1e3
-            finally:
-                packet.wide_traverse = real
-            image = post.post_process(accum, scene.post_settings)
-            torch.cuda.synchronize()
-            launches = read_launches()
-            hdr = film.resolve(accum)
-            finite = bool(torch.isfinite(hdr).all())
-            log(f"[19] hero frame {W}x{H}, 1 spp, "
-                f"{settings.max_bounce_count} bounces, env NEE, {label} "
-                f"loop: bounces (bounce, lanes it ran at, live lanes) "
-                f"{shape}")
-            log(f"[19] hero frame, {label} loop: frame_ms {frame_ms:.3f}, "
-                f"rays_per_frame_M {rays / 1e6:.4f}, Mrays/s "
-                f"{rays / frame_ms / 1e3:.3f} ({card})")
-            log(f"[19] launches over {n_frames} frames + post: {launches}; "
-                f"waves {wave_calls}; image {tuple(image.shape)} "
-                f"{image.dtype}, hdr finite {finite}, mean hdr "
-                f"{float(hdr.mean()):.4f}")
-            if (wave_calls["primary"] + wave_calls["bounce"]
-                    != launches["closest"]
-                    or wave_calls["shadow"] != launches["occlusion"]):
-                raise AssertionError(f"wave calls {wave_calls} do not add up "
-                                     f"to the launches {launches}")
-            if not (launches["closest"] > 0 and launches["occlusion"] > 0
-                    and launches["post_rgba8"] > 0):
-                raise AssertionError(f"a kernel of the hero path never ran: "
-                                     f"{launches}")
-            if not finite or tuple(image.shape) != (H, W, 4):
-                raise AssertionError("hero frame image is not finite / "
-                                     "misshaped")
-            staged = (label == "staged"
-                      or (label == "default" and default_staged))
-            if staged == (len({w for _, w, _ in shape}) < 2):
-                raise AssertionError(f"hero {label} loop ran at the lanes "
-                                     f"{shape}")
-            frame_breakdown(lambda: one(99), packet, "wide_traverse", card,
-                            frame_ms, f"[19] {label}:")
-            runs[label] = dict(frame_ms=frame_ms, rays=rays, shape=shape,
-                               launches=launches, wave_calls=wave_calls)
-    frame_ms, rays = runs["default"]["frame_ms"], runs["default"]["rays"]
-    launches = runs["default"]["launches"]
-    wave_calls = runs["default"]["wave_calls"]
+    # the launch counts are set to 0 just before the timed frames and read
+    # just after
+    n_frames = 3
+    reset_launches()
+    packet.wide_traverse = counter
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f_i in range(n_frames):
+            calls["closest"] = 0
+            accum, stats = render_frame(
+                ps, settings, scene.camera, accum, 2 + f_i, h=H, w=W,
+                n_lights=scene.n_lights, has_medium=scene.has_medium)
+        rays = float(stats[0])
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) / n_frames * 1e3
+    finally:
+        packet.wide_traverse = real
+    image = post.post_process(accum, scene.post_settings)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    hdr = film.resolve(accum)
+    finite = bool(torch.isfinite(hdr).all())
+    log(f"[19] hero frame {W}x{H}, 1 spp, {settings.max_bounce_count} "
+        f"bounces, env NEE: bounces (bounce, lanes, live lanes) {shape}")
+    log(f"[19] hero frame: frame_ms {frame_ms:.3f}, rays_per_frame_M "
+        f"{rays / 1e6:.4f}, Mrays/s {rays / frame_ms / 1e3:.3f} ({card})")
+    log(f"[19] launches over {n_frames} frames + post: {launches}; waves "
+        f"{wave_calls}; image {tuple(image.shape)} {image.dtype}, hdr "
+        f"finite {finite}, mean hdr {float(hdr.mean()):.4f}")
+    if (wave_calls["primary"] + wave_calls["bounce"] != launches["closest"]
+            or wave_calls["shadow"] != launches["occlusion"]):
+        raise AssertionError(f"wave calls {wave_calls} do not add up to the "
+                             f"launches {launches}")
+    if not (launches["closest"] > 0 and launches["occlusion"] > 0
+            and launches["post_rgba8"] > 0):
+        raise AssertionError(f"a kernel of the hero path never ran: "
+                             f"{launches}")
+    if not finite or tuple(image.shape) != (H, W, 4):
+        raise AssertionError("hero frame image is not finite / misshaped")
+    frame_breakdown(lambda: one(99), packet, "wide_traverse", card,
+                    frame_ms, "[19]")
     records = wide_wave_records(
         ps, waves, wave_calls, launches, card, report, "[19]", "hero ",
         (("primary", "K1", "buas_pathtracer_tpu/ops/pallas_packet.py:406"),
@@ -1711,39 +1605,9 @@ def run_hero(dev, card, report):
          ("shadow", "K2", "buas_pathtracer_tpu/ops/pallas_packet.py:639")),
         {})
     info = {"hero_frame_ms": frame_ms, "hero_rays_per_frame_M": rays / 1e6,
-            "hero_pack_s": pack_s, "hero_bounces": runs["default"]["shape"],
-            "hero_launches": launches,
-            f"hero_{other[0]}_frame_ms": runs[other[0]]["frame_ms"],
-            f"hero_{other[0]}_launches": runs[other[0]]["launches"]}
+            "hero_pack_s": pack_s, "hero_bounces": shape,
+            "hero_launches": launches}
     return records, info, ps, scene
-
-
-def run_full_width_identity(cells, dev):
-    """Phase 20: at 1920x1080 on the hero, bench and stress frames (the
-    stress frame on its split tables), the staged frame at the default
-    widths and at the JAX package's 512,128 equals the single-loop frame
-    bit for bit, with at least one stage run."""
-    import torch
-    for name in ("hero", "bench", "stress"):
-        ps, sc = cells[name]
-        with stage_env("single loop"):
-            ref = time_frames(ps, sc, dev, 1, 11)[2]
-        for config in ("default", "512,128"):
-            acc = []
-            with stage_env(config):
-                shape = bounce_shape(
-                    lambda: acc.append(time_frames(ps, sc, dev, 1, 11)[2]))
-            same = bool(torch.equal(acc[0], ref))
-            log(f"[20] {name} 1920x1080"
-                f"{' (split tables)' if ps.v4_res is not None else ''}, "
-                f"stages {config}: lanes per bounce "
-                f"{[w for _, w, _ in shape]}, live {[n for *_, n in shape]};"
-                f" accumulation bit-identical to the single loop {same}")
-            if not same:
-                raise AssertionError(f"{name}: staged ({config}) and "
-                                     "single-loop frames differ")
-            if len({w for _, w, _ in shape}) < 2:
-                raise AssertionError(f"{name}: no stage ran: {shape}")
 
 
 def device_profile(fn):
@@ -1767,172 +1631,6 @@ def device_profile(fn):
             if "_traverse_" in e.key:
                 walk += us
     return (total / 1e3, count, walk / 1e3) if count else None
-
-
-def staged_turns(cells, dev, card, configs, passes, tag):
-    """frame_ms of each stage configuration on the bench, stress and hero
-    frames, in turns: ``passes`` passes over the configurations, forward
-    and backward in turn, TURN_FRAMES frames a reading after one untimed
-    frame of that configuration; and one profiled frame of each
-    configuration.  Returns {cell: {config: [ms, ...], "<config> device":
-    (device ms, launches, walk ms)}}."""
-    table = {}
-    for name in ("bench", "stress", "hero"):
-        ps, sc = cells[name]
-        table[name] = {c: [] for c in configs}
-        shapes = {}
-        for c in configs:  # warm-up, and each config's shape
-            with stage_env(c):
-                shapes[c] = [w for _, w, _ in bounce_shape(
-                    lambda: time_frames(ps, sc, dev, 1, 0))]
-        for k in range(passes):
-            for c in (configs if k % 2 == 0 else configs[::-1]):
-                with stage_env(c):
-                    table[name][c].append(time_frames(
-                        ps, sc, dev, TURN_FRAMES, 1, warm=1)[0])
-        for c in configs:  # device time, one frame
-            with stage_env(c):
-                prof = device_profile(lambda: time_frames(ps, sc, dev, 1, 1))
-            what = {"single loop": "single loop",
-                    "default": "staged at the default widths"}.get(
-                        c, f"stages {c}")
-            log(f"{tag} {name} {what}: "
-                + ("device time not measured" if prof is None else
-                   f"device time {prof[0]:.3f} ms in {prof[1]} launches, "
-                   f"walks {prof[2]:.3f} ms, everything else "
-                   f"{prof[0] - prof[2]:.3f} ms") + f" ({card})")
-            table[name][f"{c} device"] = prof
-        single = table[name]["single loop"]
-        for c in configs:
-            ms = table[name][c]
-            wins = sum(a < b for a, b in zip(ms, single))
-            log(f"{tag} {name} {c:>11}: frame_ms "
-                f"{' / '.join(f'{x:.3f}' for x in ms)} (median "
-                f"{float(np.median(ms)):.3f}; faster than the single loop in "
-                f"{wins} of {len(ms)} passes); lanes per bounce {shapes[c]} "
-                f"({card})")
-    return table
-
-
-def run_staged_turns(cells, dev, card):
-    """Phase 21: the single loop against the staged loop at the default
-    widths on the bench, stress and hero frames, in turns (two passes)."""
-    return staged_turns(cells, dev, card, ("single loop", "default"), 2,
-                        "[21]")
-
-
-def run_stage_widths(cells, dev, card):
-    """``--turns``: STAGE_CONFIGS in turns over STAGE_PASSES passes; the
-    fastest config is the least sum over the cells of its median reading,
-    and beside it each config's device time summed over the cells."""
-    from buas_pathtracer_tpu_torch.integrators import advanced
-    table = staged_turns(cells, dev, card, STAGE_CONFIGS, STAGE_PASSES,
-                         "[T1]")
-    score = {c: sum(float(np.median(table[n][c])) for n in table)
-             for c in STAGE_CONFIGS}
-    wins = {c: sum(sum(a < b for a, b in zip(table[n][c],
-                                             table[n]["single loop"]))
-                   for n in table) for c in STAGE_CONFIGS}
-    best = min(score, key=score.get)
-    profiled = all(table[n][f"{c} device"] for n in table
-                   for c in STAGE_CONFIGS)
-    device = ({c: sum(table[n][f"{c} device"][0] for n in table)
-               for c in STAGE_CONFIGS} if profiled else None)
-    code = ("single loop" if advanced.DEFAULT_TWO_PHASE != "1" else
-            advanced.DEFAULT_PHASE_BLOCKS)
-    log(f"[T1] sum of median frame_ms over bench + stress + hero: "
-        f"{ {c: round(v, 3) for c, v in score.items()} }; passes faster "
-        f"than the single loop (of {3 * STAGE_PASSES}): {wins}; fastest: "
-        f"{best}; sum of device ms: "
-        + ("not measured" if device is None else
-           f"{ {c: round(v, 3) for c, v in device.items()} }, least "
-           f"{min(device, key=device.get)}")
-        + f"; the code's default: {code} (staged default "
-        f"{advanced.DEFAULT_PHASE_BLOCKS})")
-    return table, best
-
-
-def record_shadow_queries(frame):
-    """Run ``frame()`` once keeping copies of the queries of the advanced
-    integrator's first two shadow waves (bounces 0 and 1)."""
-    import torch
-    from buas_pathtracer_tpu_torch.integrators import advanced
-    real, kept = advanced._shadow, []
-
-    def recorder(ps, queries):
-        if len(kept) < 2:
-            kept.append([tuple(type(x)(*(c.clone() for c in x))
-                               if isinstance(x, tuple) else x.clone()
-                               for x in q) for q in queries])
-        return real(ps, queries)
-
-    advanced._shadow = recorder
-    try:
-        frame()
-        torch.cuda.synchronize()
-    finally:
-        advanced._shadow = real
-    return kept
-
-
-def run_wave_turns(cells, waves, dev, card):
-    """``--turns``: the natural route (``dispatch.walk``) against the
-    key-sorted route (``dispatch.walk_sorted``) on the bench and hero
-    bounce-1 and shadow-0 waves, and the hero's light + env shadow queries
-    as one 2N wave (``advanced._shadow``) against one wave each, at
-    bounces 0 and 1; each pair held equal and timed in turns (a, b, b,
-    a), ms a call."""
-    import torch
-    from buas_pathtracer_tpu_torch.integrators import advanced
-    from buas_pathtracer_tpu_torch.ops import dispatch, traverse_wide
-    out = {}
-
-    def turns(fa, fb):
-        ms = {"a": [], "b": []}
-        for k in "abba":
-            ms[k].append(cuda_ms(fa if k == "a" else fb, KERNEL_REPS))
-        return ms["a"], ms["b"]
-
-    for name in ("bench", "hero"):
-        ps, _ = cells[name]
-        for wave in ("bounce", "shadow"):
-            o, d, t0_, ign, occ = waves[name][wave]
-            args = (ps, o, d, t0_, ign, occ)
-            nat, srt = dispatch.walk(*args), dispatch.walk_sorted(*args)
-            same = all(bool(torch.equal(a, b))
-                       for a, b in zip(nat[:5], srt[:5]))
-            t_nat, t_srt = turns(lambda: dispatch.walk(*args),
-                                 lambda: dispatch.walk_sorted(*args))
-            coh = float(dispatch.block_coherence(d, t0_))
-            log(f"[T2] {name} {wave} wave ({int((t0_ >= 0).sum())} live of "
-                f"{t0_.shape[0]}, block coherence {coh:.4f}), in turns: "
-                f"natural {t_nat} ms (rows read {int(nat[5][0])}), sorted "
-                f"{t_srt} ms (rows read {int(srt[5][0])}), outputs equal "
-                f"{same} ({card})")
-            if not same:
-                raise AssertionError(f"{name} {wave} wave: the routes differ")
-            out[f"{name}_{wave}_wave_ms"] = {"natural": t_nat,
-                                             "sorted": t_srt}
-    ps, _ = cells["hero"]
-    for bounce, queries in enumerate(waves["hero_shadow_queries"]):
-        one = advanced._shadow(ps, queries)
-        each = [traverse_wide.intersect_shadow_ray(ps, *q) for q in queries]
-        same = all(bool(torch.equal(a, b)) for a, b in zip(one, each))
-        t_one, t_each = turns(
-            lambda: advanced._shadow(ps, queries),
-            lambda: [traverse_wide.intersect_shadow_ray(ps, *q)
-                     for q in queries])
-        live = [int((q[2] >= 0).sum()) for q in queries]
-        log(f"[T2] hero bounce-{bounce} light + env shadow queries ({live} "
-            f"live of {queries[0][2].shape[0]} each), in turns: one 2N wave "
-            f"{t_one} ms, one wave each {t_each} ms, occlusion equal {same} "
-            f"({card})")
-        if not same:
-            raise AssertionError("the 2N shadow wave differs from one wave "
-                                 "each")
-        out[f"hero_shadow_{bounce}_ms"] = {"one_2n_wave": t_one,
-                                           "wave_each": t_each}
-    return out
 
 
 def run_integrators(cells, dev, card):
@@ -2782,35 +2480,6 @@ def run_host_code(dev, card, tmp):
 # main
 # ---------------------------------------------------------------------------
 
-def run_turns(dev, card):
-    """``--turns``: the measurements that chose the defaults of the staged
-    loop, the wave route and the shadow waves, on the bench, stress and
-    hero frames ([T1], [T2]); prints their JSON line."""
-    from buas_pathtracer_tpu_torch.models.scenes import (build_bench_scene,
-                                                         build_hero_scene,
-                                                         build_stress_scene)
-    from buas_pathtracer_tpu_torch.ops import packet
-    cells, waves = {}, {}
-    for name, build in (("bench", build_bench_scene),
-                        ("stress", build_stress_scene),
-                        ("hero", build_hero_scene)):
-        sc = build(1920, 1080)
-        cells[name] = (sc.pack(device=dev), sc)
-    for name in ("bench", "hero"):
-        ps, sc = cells[name]
-        waves[name] = record_waves(packet, "wide_traverse",
-                                   lambda: time_frames(ps, sc, dev, 1, 0))
-    ps, sc = cells["hero"]
-    waves["hero_shadow_queries"] = record_shadow_queries(
-        lambda: time_frames(ps, sc, dev, 1, 0))
-    table, best = run_stage_widths(cells, dev, card)
-    routes = run_wave_turns(cells, waves, dev, card)
-    print(json.dumps({"stage_widths": table, "fastest_stages": best,
-                      "wave_turns": routes, "card": card}), flush=True)
-    print(card, flush=True)
-    return 0
-
-
 def main(argv):
     t_start = time.perf_counter()
     import torch
@@ -2866,8 +2535,6 @@ def main(argv):
     if not native.available():
         raise RuntimeError("native builders unavailable (g++)")
     log(f"[2] native builders built+loaded in {time.perf_counter() - t0:.2f} s")
-    if "--turns" in argv:
-        return run_turns(dev, card)
     if "--hit" in argv:
         from buas_pathtracer_tpu_torch.models.scenes import build_stress_scene
         cells = []
@@ -3169,8 +2836,7 @@ def main(argv):
     # ---- 15. the dense triangle stream on the bench scene ----
     records.append(run_tristream(ps, sets, card, report, sass))
 
-    # ---- 17. staged 64x64 frames; 18-19. the hero frame ----
-    run_staged_small(dev)
+    # ---- 18-19. the hero frame ----
     hero_records, hero, hero_ps, hero_scene = run_hero(dev, card, report)
     records += hero_records
     for r in records:  # the hero path's launches beside the bench path's
@@ -3182,10 +2848,7 @@ def main(argv):
     cells = {"bench": (ps, scene), "stress": (stress_ps, stress_scene),
              "hero": (hero_ps, hero_scene)}
 
-    # ---- 20-24. staged = single loop at full width, staged against the
-    # single loop in turns, the other integrators, the blue-noise sampler ----
-    run_full_width_identity(cells, dev)
-    staged = run_staged_turns(cells, dev, card)
+    # ---- 23-24. the other integrators, the blue-noise sampler ----
     others = run_integrators(cells, dev, card)
     bn_ms = run_blue_noise(cells, dev, card)
 
@@ -3213,7 +2876,7 @@ def main(argv):
     log(f"[25] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records, "frame_ms": frame_s * 1e3,
                       "rays_per_frame_M": rays / 1e6, **stress, **hero,
-                      "staged_turns": staged, "integrators_ms": others,
+                      "integrators_ms": others,
                       "blue_noise_frame_ms": bn_ms, "session": session,
                       "sharded": sharded, "host_code": host_code,
                       "card": card}),

@@ -6,9 +6,8 @@ field of every lane (hit id, material id, triangle, t, barycentrics, point,
 stats), and on the normal of every lane that hit something; a lane that hit
 nothing gets the normal (0, 0, 0).  That holds on full-size waves of the
 bench, Week 7 Nicer and stress frames (bounces 0 and 1), and a whole bench
-frame is identical through the kernel and through the plain version,
-single loop and staged.  The caller's rays and limits are left as they
-were.
+frame is identical through the kernel and through the plain version.  The
+caller's rays and limits are left as they were.
 
 Here on the CPU: CPU tensors take the plain path; the wrapper's checks;
 the row offsets and the argument struct that ``csrc/hit.cuh`` hard-codes;
@@ -425,12 +424,10 @@ def test_kernel_bit_equal_plain_on_card(name, monkeypatch):
         assert int((plain.hit_id >= 0).sum()) > 1000
 
 
-def _frame(dev, staged, monkeypatch, plain):
+def _frame(dev, monkeypatch, plain):
     from buas_pathtracer_tpu_torch.models.scenes import build_bench_scene
     from buas_pathtracer_tpu_torch.runtime import film
     from buas_pathtracer_tpu_torch.runtime.render import render_frame
-    monkeypatch.setenv("BUAS_TWO_PHASE", "1" if staged else "0")
-    monkeypatch.setenv("BUAS_PHASE_BLOCKS", "64,16")
     if plain:
         monkeypatch.setattr(hit_kernel, "hit_record", plain_record)
     w, h = 480, 270
@@ -447,21 +444,18 @@ def _frame(dev, staged, monkeypatch, plain):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("staged", [False, True], ids=["single", "staged"])
-def test_frame_bit_equal_plain_on_card(staged, monkeypatch):
+def test_frame_bit_equal_plain_on_card(monkeypatch):
     """A 480x270 bench frame (8 bounces) through the kernel equals the
     frame through the plain record; the record shows one hit_record launch
     a closest-hit query (a bounce run)."""
     dev = _card()
-    ak, sk, rec = _frame(dev, staged, monkeypatch, plain=False)
-    ap, sp, rec_p = _frame(dev, staged, monkeypatch, plain=True)
+    ak, sk, rec = _frame(dev, monkeypatch, plain=False)
+    ap, sp, rec_p = _frame(dev, monkeypatch, plain=True)
     assert torch.equal(ak, ap) and torch.equal(sk, sp)
     runs = len(rec.bounces)
     assert runs >= 3 and rec.bounces == rec_p.bounces
     assert rec.launches.get("hit_record") == runs
     assert "hit_record" not in rec_p.launches
-    if staged:
-        assert any(lanes < 480 * 270 for _, lanes, _ in rec.bounces)
 
 
 @pytest.mark.gpu

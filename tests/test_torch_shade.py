@@ -8,9 +8,8 @@ direction, stack, stack index, specular flag and previous normal, on the
 RNG state of the lanes alive at the bounce's entry, and on the stats: over
 a grid of the integrator's flags, the three sampling strategies, bounce 0
 and later bounces, hits from inside and outside, empty and full stacks,
-rough metal, emissive hits and lanes prefiltered at a stage's entry; a
-whole small frame too, single loop and staged, and the caller's rays and
-sampler are left as they were.
+rough metal and emissive hits; a whole small frame too, and the caller's
+rays and sampler are left as they were.
 
 Here on the CPU: the module imports without ``nvcc`` and CPU tensors take
 the plain path; the wrapper's checks; the table offsets and the argument
@@ -134,7 +133,7 @@ def _entry_state(ps, settings, s, rays, n_lights):
 
 def _hit(ps, st):
     return traverse_wide.intersect_scene(
-        ps, st.o, st.d, max_t=torch.where(st.live_r, traverse.BIG_T, -1.0))
+        ps, st.o, st.d, max_t=torch.where(st.alive, traverse.BIG_T, -1.0))
 
 
 def _plain_bounce(ps, f, st, stats, bounce):
@@ -152,15 +151,13 @@ def _clone(st):
     return st._replace(alive=c(st.alive), o=v(st.o), d=v(st.d), tp=v(st.tp),
                        total=v(st.total), s=st.s._replace(state=c(st.s.state)),
                        stack=c(st.stack), stack_at=c(st.stack_at),
-                       is_spec=c(st.is_spec), prev_n=v(st.prev_n),
-                       live_r=c(st.live_r))
+                       is_spec=c(st.is_spec), prev_n=v(st.prev_n))
 
 
 def case_state(case, strategy, bounce, dev, w=W, h=H):
     """(ps, flags, state, stats) at ``bounce``: the plain loop run up to it
     on the scene, then the stacks of some lanes made full (7 glass entries)
-    or empty, and at bounce >= 1 some live lanes prefiltered as at a
-    stage's entry."""
+    or empty."""
     sc = shade_scene(env=case.startswith("env"))
     ps = sc.pack(device=dev)
     settings = _settings(case, strategy)
@@ -177,8 +174,6 @@ def case_state(case, strategy, bounce, dev, w=W, h=H):
                      stack_at=torch.where(full, adv.STACK_DEPTH - 1,
                                           torch.where(lane % 11 == 5, 0,
                                                       st.stack_at)))
-    if bounce:
-        st = st._replace(live_r=st.alive & (lane % 13 != 0))
     return ps, f, _clone(st), stats
 
 
@@ -501,9 +496,7 @@ def test_kernels_bit_equal_plain_on_card(case, strategy, bounce):
     assert live > 1000
 
 
-def _frame(dev, staged, monkeypatch, plain):
-    monkeypatch.setenv("BUAS_TWO_PHASE", "1" if staged else "0")
-    monkeypatch.setenv("BUAS_PHASE_BLOCKS", "2,1")
+def _frame(dev, monkeypatch, plain):
     if plain:
         monkeypatch.setattr(adv, "_shade_hit", adv._shade_hit_plain)
 
@@ -523,14 +516,13 @@ def _frame(dev, staged, monkeypatch, plain):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("staged", [False, True], ids=["single", "staged"])
-def test_frame_bit_equal_plain_on_card(staged, monkeypatch):
+def test_frame_bit_equal_plain_on_card(monkeypatch):
     """A 64x48 Advanced pass (8 bounces, env NEE, glass inside glass):
     the kernels' colour and stats equal the plain version's; the record
     shows one shade_hit and one shade_next a bounce run."""
     dev = _card()
-    ck, sk, rec = _frame(dev, staged, monkeypatch, plain=False)
-    cp, sp, rec_p = _frame(dev, staged, monkeypatch, plain=True)
+    ck, sk, rec = _frame(dev, monkeypatch, plain=False)
+    cp, sp, rec_p = _frame(dev, monkeypatch, plain=True)
     for a, b in zip(ck, cp):
         assert torch.equal(a, b)
     assert torch.equal(sk, sp)
@@ -539,8 +531,6 @@ def test_frame_bit_equal_plain_on_card(staged, monkeypatch):
     assert rec.launches.get("shade_hit") == runs
     assert rec.launches.get("shade_next") == runs
     assert "shade_hit" not in rec_p.launches
-    if staged:
-        assert any(lanes < 64 * 48 for _, lanes, _ in rec.bounces)
 
 
 @pytest.mark.gpu
