@@ -1,4 +1,4 @@
-// What the one-thread-a-lane kernels (shade.cuh, hit.cuh) share: the host
+// What the one-thread-a-lane kernels (shade.cuh, nee.cuh, hit.cuh) share: the host
 // stand-ins that let their lane logic compile with g++ for the CPU tests
 // (tests/shade_host/, tests/hit_host/), and the helpers that follow
 // PyTorch's CUDA arithmetic.
@@ -17,6 +17,11 @@ inline float __uint_as_float(uint32_t u) {
   float f;
   std::memcpy(&f, &u, sizeof f);
   return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
 }
 template <class T> inline T __ldg(const T *p) { return *p; }
 #endif

@@ -2,7 +2,8 @@
 // Pathtracer, in two launches around next-event estimation.
 //
 // These kernels replace no TPU kernel: on the TPU, XLA fuses the bounce's
-// shading into the frame program.  On the H100 the port ran it as ~540
+// shading into the frame program.  Between them, nee_sample (nee.cu) and the
+// occlusion walk run next-event estimation.  On the H100 the port ran it as ~540
 // PyTorch ops a bounce: 4,295 of a bench frame's 9,299 launches and 64 of
 // its 156 device ms (PERF.md, section 5), each op a launch the host issues
 // at 15-20 us and an (N,) pass over the lanes, with (N, 16) row gathers of
@@ -13,8 +14,9 @@
 //    Fresnel, the REFLECTANCE and fuzz draws, the reflect and refract
 //    branches with the stack's push and pop, the diffuse BRDF;
 //  - shade_next runs after the shadow walk: the light and environment
-//    contributions from the tensors NEE left, the INDIRECT_LIGHTING draw,
-//    the hemisphere, the branches' merge and Russian roulette.
+//    contributions from nee_sample's scratch and the walk's prim, the
+//    INDIRECT_LIGHTING draw, the hemisphere, the branches' merge and Russian
+//    roulette.
 // The lane logic and its arithmetic are in shade.cuh.
 //
 // Layout: the state is SoA, float32 Vec3 components and int64 RNG state,
@@ -33,7 +35,7 @@
 // come from cache) and writes ~110 (throughput, total, normal 12 each, RNG
 // state 8, the branch's scratch 12-36, codes 2, stack 0-16); shade_next
 // reads ~95 (alive 1, code 1, RNG 8, throughput 12, normal 12, BRDF or
-// ray 12-36, NEE's 1-byte flags and 4-byte terms 0-35, point 12) and writes
+// ray 12-36, NEE's flags bytes, walk prims and terms 0-59, point 12) and writes
 // ~70 (throughput 12, total 0-12, origin 12, direction 12, normal 12, RNG
 // 8, flags 2).  So a bounce moves ~410 bytes a live lane and 4-5 a dead
 // one: at 2,073,600 lanes all alive, 0.85 GB or 0.25 ms at 3.35 TB/s; a

@@ -15,7 +15,7 @@
 //  - clamp and maximum propagate NaN as PyTorch's do;
 //  - normalize is a * rsqrtf(dot(a, a)), PyTorch's CUDA rsqrt.
 // The RNG draws keep the plain version's order: REFLECTANCE, the three fuzz
-// draws, [the NEE draws, in PyTorch], INDIRECT_LIGHTING, ROULETTE.
+// draws, [NEE's draws: nee.cuh], INDIRECT_LIGHTING, ROULETTE.
 //
 // The header compiles with g++ as well (no __CUDACC__; lane.cuh), so the CPU
 // tests can run its logic against the plain version (tests/shade_host/).
@@ -59,9 +59,12 @@ constexpr int64_t PRIM_SPHERE = 2;  // models/scene.py PRIM_SPHERE
 // core/sampler.py Strategy and SampleDimension
 constexpr int64_t BLUE_NOISE = 1;
 constexpr int64_t STRATIFIED = 2;
+constexpr int DIM_DIRECT = 0;
 constexpr int DIM_INDIRECT = 1;
+constexpr int DIM_SELECT = 2;
 constexpr int DIM_REFLECTANCE = 3;
 constexpr int DIM_ROULETTE = 6;
+constexpr int DIM_ENV = 7;
 
 // the branch a lane continues with (scratch row SI_CODE)
 constexpr uint8_t BR_NONE = 0;  // dead, missed or emissive: the path ends
@@ -78,6 +81,25 @@ constexpr int SF_ROWS = 15;
 constexpr int SI_CODE = 0;
 constexpr int SI_NEE = 1;  // bool: the lanes NEE serves (BR_DIFFUSE)
 constexpr int SI_ROWS = 2;
+// next-event estimation's scratch (nee.cuh), float (NF_ROWS, n): the light
+// sample's terms, then the environment sample's
+constexpr int NF_NDL = 0;   // n_dot_l
+constexpr int NF_NLDL = 1;  // nl_dot_l
+constexpr int NF_AREA = 2;
+constexpr int NF_DSQ = 3;   // dist_sq
+constexpr int NF_RCP = 4;   // the pick probability (rcp_pdf)
+constexpr int NF_NDE = 5;   // n_dot_e
+constexpr int NF_PDFE = 6;  // the environment sample's solid-angle pdf
+constexpr int NF_RADE = 7;  // its radiance
+constexpr int NF_ROWS = 10;
+// the shadow wave's rays, float (WF_ROWS, w), w = n a sample kind: the
+// light's queries in lanes [0, n), the environment's after them
+constexpr int WF_O = 0;
+constexpr int WF_D = 3;
+constexpr int WF_ROWS = 6;
+// a wave lane's flags byte
+constexpr uint8_t WB_FACING = 1;
+constexpr uint8_t WB_PLANE = 2;  // a plane blocks the query
 
 constexpr double PI_D = 3.141592653589793;  // core/vec.py PI
 constexpr float PI_F = (float)PI_D;
@@ -95,13 +117,15 @@ constexpr float CLAMP_ETA = (float)1e-6;
 constexpr float CLAMP_COS = (float)1e-8;
 constexpr float RR_LO = (float)0.1;
 constexpr float RR_HI = (float)0.9;
+constexpr float TWO_EPS_F = (float)(2.0 * 0.001);  // 2.0 * EPSILON
+constexpr float BIG_T_F = (float)3.0e38;           // ops/traverse.py BIG_T
 
 // Everything both kernels read and write, by value: pointers and 64-bit
 // integers only, in the order of ops/shade_kernel.py's ShadeArgs.
 struct Args {
   // lanes, flags (integrators/advanced.py _Flags) and sizes
   int64_t n, bounce, strategy, nee, env_nee, use_mis, is_lights, is_diffuse,
-      rr, caustics, ref_mis, has_env, n_lights, env_h, env_w;
+      rr, caustics, ref_mis, has_env, n_lights, env_h, env_w, n_planes;
   // scene tables
   const float *mat16;
   const int64_t *light_prim;
@@ -110,7 +134,9 @@ struct Args {
   const float *prim_r;
   const int64_t *prim_type;
   const float *mat_emission[3], *sky_bot[3], *sky_top[3], *env_pixels,
-      *env_pdf_num;
+      *env_pdf_num, *env_alias_prob;
+  const int64_t *env_alias_idx;
+  const float *plane_n[3], *plane_d;
   // the loop's state, updated in place
   uint8_t *alive, *is_spec;
   float *o[3], *d[3], *tp[3], *total[3], *prev_n[3];
@@ -128,12 +154,17 @@ struct Args {
   // scratch between the kernels
   float *sf;
   uint8_t *si;
-  // next-event estimation's results (shade_next; NEE's draws are in rng)
-  const uint8_t *facing, *occluded;
-  const float *nl_dot_l, *area, *dist_sq, *rcp_pdf, *n_dot_l;
-  const int64_t *slot;
-  const uint8_t *facing_e, *occluded_e;
-  const float *n_dot_e, *pdf_e, *rad_e[3];
+  // next-event estimation's scratch, which nee_sample writes and
+  // shade_next reads: the samples' terms (NF_ROWS, n), the picked light
+  // slot, the shadow wave's rays (WF_ROWS, w), its t0 (max_t, shortened by
+  // the planes), ignored prims and flags, and the occlusion walk's prim
+  // (>= 0: a primitive blocks the query)
+  float *nf;
+  int32_t *nslot;
+  float *wf, *w_t;
+  int32_t *w_ign;
+  uint8_t *w_flags;
+  const int32_t *w_prim;
 };
 
 __device__ __forceinline__ float clamp_to(float v, float lo, float hi) {
@@ -523,13 +554,14 @@ __device__ __forceinline__ void shade_next_lane(const Args &a, int64_t i,
   if (code == BR_DIFFUSE && (a.nee || a.env_nee)) {
     float total[3] = {a.total[0][i], a.total[1][i], a.total[2][i]};
     bool changed = false;
-    if (a.nee && __ldg(a.facing + i)) {
+    const float *nf = a.nf + i;
+    if (a.nee && (a.w_flags[i] & WB_FACING)) {
       ++cnt[0];
-      if (!__ldg(a.occluded + i)) {
-        const float n_dot_l = __ldg(a.n_dot_l + i);
-        const float rcp_pdf = __ldg(a.rcp_pdf + i);
-        const float solid = (__ldg(a.nl_dot_l + i) * __ldg(a.area + i)) /
-                            clamp_min(__ldg(a.dist_sq + i), CLAMP_PDF);
+      if (!(a.w_flags[i] & WB_PLANE) && a.w_prim[i] < 0) {
+        const float n_dot_l = nf[NF_NDL * n];
+        const float rcp_pdf = nf[NF_RCP * n];
+        const float solid = (nf[NF_NLDL * n] * nf[NF_AREA * n]) /
+                            clamp_min(nf[NF_DSQ * n], CLAMP_PDF);
         const float lp_sa = rcp_pdf / clamp_min(solid, CLAMP_PDF);
         const float bp = a.is_diffuse ? n_dot_l * RCP_PI_F : INV_2PI_F;
         float pdf;
@@ -541,22 +573,23 @@ __device__ __forceinline__ void shade_next_lane(const Args &a, int64_t i,
           pdf = lp_sa;
         const float q = n_dot_l / clamp_min(pdf, CLAMP_W);
         const float *le =
-            a.light16 + ld64(a.slot + i) * LIGHT_ROW + LIGHT_EMISSION;
+            a.light16 + (int64_t)a.nslot[i] * LIGHT_ROW + LIGHT_EMISSION;
         for (int c = 0; c < 3; ++c)
           total[c] = total[c] + tp[c] * brdf[c] * __ldg(le + c) * q;
         changed = true;
       }
     }
-    if (a.env_nee && __ldg(a.facing_e + i)) {
+    const int64_t e = a.nee ? n + i : i;  // the env query's wave lane
+    if (a.env_nee && (a.w_flags[e] & WB_FACING)) {
       ++cnt[1];
-      if (!__ldg(a.occluded_e + i)) {
-        const float n_dot_e = __ldg(a.n_dot_e + i);
-        float pdf = __ldg(a.pdf_e + i);
+      if (!(a.w_flags[e] & WB_PLANE) && a.w_prim[e] < 0) {
+        const float n_dot_e = nf[NF_NDE * n];
+        float pdf = nf[NF_PDFE * n];
         if (a.use_mis)
           pdf = pdf + (a.is_diffuse ? n_dot_e * RCP_PI_F : INV_2PI_F);
         const float q = n_dot_e / clamp_min(pdf, CLAMP_W);
         for (int c = 0; c < 3; ++c)
-          total[c] = total[c] + tp[c] * brdf[c] * __ldg(a.rad_e[c] + i) * q;
+          total[c] = total[c] + tp[c] * brdf[c] * nf[(NF_RADE + c) * n] * q;
         changed = true;
       }
     }

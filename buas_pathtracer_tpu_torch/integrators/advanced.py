@@ -16,12 +16,13 @@ bounces or when no ray is alive.
 
 A bounce is the closest-hit walk, the shading up to next-event
 estimation (``_shade_hit``), NEE's samples and shadow walk (``_nee``) and
-the rest of the shading (``_shade_next``).  On the card the two shading
-halves are the CUDA kernels ``shade_hit`` and ``shade_next``
-(``ops/shade_kernel.py``, ``csrc/shade.cu``), which update the loop's
-state in place (the state is the loop's own from its entry: the caller's
-rays and sampler are not written); ``_shade_hit_plain`` and
-``_shade_next_plain`` are their plain version, which CPU tensors take.
+the rest of the shading (``_shade_next``).  On the card these are the CUDA
+kernels ``shade_hit``, ``nee_sample`` (then the occlusion walk) and
+``shade_next`` (``ops/shade_kernel.py``, ``csrc/shade.cu``,
+``csrc/nee.cu``), which update the loop's state in place (the state is the
+loop's own from its entry: the caller's rays and sampler are not written);
+``_shade_hit_plain``, ``_nee_plain`` and ``_shade_next_plain`` are their
+plain version, which CPU tensors take.
 """
 
 from __future__ import annotations
@@ -135,8 +136,8 @@ class _Branches(NamedTuple):
 
 
 class _LightNee(NamedTuple):
-    """The light sample and its shadow query, as ``_shade_next`` reads
-    them (``emission`` for the plain version, ``slot`` for the kernel)."""
+    """The plain version's light sample and its shadow query's answer, as
+    ``_shade_next_plain`` reads them."""
 
     facing: torch.Tensor
     occluded: torch.Tensor
@@ -305,16 +306,17 @@ def _shade_hit_plain(ps: PackedScene, f: _Flags, st: _State, hit, stats,
     return st, stats, _Shade(N, do_diffuse & found & ~t_emissive, rest)
 
 
-def _nee(ps: PackedScene, f: _Flags, s: smp.Sampler, p: Vec3, N: Vec3,
-         lanes, bounce: int):
-    """Next-event estimation's samples (light, then environment) and their
-    shadow queries (reference intersect_shadow_ray, intersection.cpp:
-    600-604), for the lanes ``lanes``.  Returns (sampler, _LightNee or
-    None, _EnvNee or None)."""
+def _nee_queries(ps: PackedScene, f: _Flags, s: smp.Sampler, p: Vec3,
+                 N: Vec3, lanes, bounce: int):
+    """Next-event estimation's samples (light, then environment) for the
+    lanes ``lanes``, and their shadow queries (o, d, max_t, ignored prim).
+    Returns (sampler, _LightNee or None, _EnvNee or None, queries), the
+    samples' ``occluded`` None."""
     n = lanes.shape[0]
     dev = lanes.device
     strategy = f.strategy
     queries = []
+    light = env = None
     if f.nee:
         s, lp_u = smp.sample_1d(
             s, strategy, smp.SampleDimension.LIGHT_SELECTION, bounce)
@@ -330,6 +332,9 @@ def _nee(ps: PackedScene, f: _Flags, s: smp.Sampler, p: Vec3, N: Vec3,
         queries.append((p + ls.L * EPSILON, ls.L,
                         torch.where(facing, ls.dist - 2.0 * EPSILON, -1.0),
                         slot_to_prim(ps, slot)))
+        light = _LightNee(facing, None, nl_dot_l, ls.A, ls.dist_sq,
+                          light_rcp_pdf, n_dot_l, slot,
+                          Vec3(lT[13], lT[14], lT[15]))
     if f.env_nee:
         s, e_u, e_v = smp.sample_2d(
             s, strategy, smp.SampleDimension.ENV_LIGHTING, bounce)
@@ -341,15 +346,46 @@ def _nee(ps: PackedScene, f: _Flags, s: smp.Sampler, p: Vec3, N: Vec3,
         queries.append((p + d_e * EPSILON, d_e,
                         torch.where(facing_e, BIG_T, -1.0),
                         torch.full((n,), -1, dtype=torch.int64, device=dev)))
+        env = _EnvNee(facing_e, None, n_dot_e, pdf_e, rad_e)
+    return s, light, env, queries
+
+
+def _nee_plain(ps: PackedScene, f: _Flags, s: smp.Sampler, p: Vec3, N: Vec3,
+               lanes, bounce: int):
+    """Next-event estimation's samples and their shadow queries (reference
+    intersect_shadow_ray, intersection.cpp:600-604) in one wave, for the
+    lanes ``lanes``.  Returns (sampler, _LightNee or None, _EnvNee or
+    None)."""
+    s, light, env, queries = _nee_queries(ps, f, s, p, N, lanes, bounce)
     occ = _shadow(ps, queries) if queries else []
-    light = env = None
-    if f.nee:
-        light = _LightNee(facing, occ[0], nl_dot_l, ls.A, ls.dist_sq,
-                          light_rcp_pdf, n_dot_l, slot,
-                          Vec3(lT[13], lT[14], lT[15]))
-    if f.env_nee:
-        env = _EnvNee(facing_e, occ[-1], n_dot_e, pdf_e, rad_e)
+    if light is not None:
+        light = light._replace(occluded=occ[0])
+    if env is not None:
+        env = env._replace(occluded=occ[-1])
     return s, light, env
+
+
+def _shadow_walk(ps: PackedScene, nee: shade_kernel.Nee):
+    """The occlusion walk of ``nee_sample``'s wave: ``nee`` with the walk's
+    prim."""
+    return nee._replace(prim=traverse_wide.occlusion_walk(ps, *nee.rays()))
+
+
+def _nee(ps: PackedScene, f: _Flags, st: _State, p: Vec3, sh: _Shade,
+         bounce: int):
+    """``_nee_plain`` on CPU tensors, with the hit point ``p``; on the card
+    the ``nee_sample`` kernel, which draws from the state's RNG in place,
+    then the occlusion walk of its wave.  Returns (state, NEE): (_LightNee
+    or None, _EnvNee or None) on the CPU, a ``shade_kernel.Nee`` (None when
+    NEE is off) on the card."""
+    if st.alive.device.type != "cuda":
+        s, light, env = _nee_plain(ps, f, st.s, p, sh.N, sh.nee_lanes,
+                                   bounce)
+        return st._replace(s=s), (light, env)
+    if not (f.nee or f.env_nee):
+        return st, None
+    return st, _shadow_walk(
+        ps, shade_kernel.nee_sample(ps, f, st, sh.rest, bounce))
 
 
 def _shade_next_plain(ps: PackedScene, f: _Flags, st: _State, sh: _Shade,
@@ -461,13 +497,13 @@ def _shade_hit(ps: PackedScene, f: _Flags, st: _State, hit, stats,
                              shade_kernel.nee_lanes(scratch), scratch)
 
 
-def _shade_next(ps: PackedScene, f: _Flags, st: _State, sh: _Shade, light,
-                env, stats, bounce: int):
+def _shade_next(ps: PackedScene, f: _Flags, st: _State, sh: _Shade, nee,
+                stats, bounce: int):
     """``_shade_next_plain`` on CPU tensors; on the card the ``shade_next``
-    kernel, in place as ``_shade_hit``."""
+    kernel, in place as ``_shade_hit``.  ``nee`` is ``_nee``'s."""
     if st.alive.device.type != "cuda":
-        return _shade_next_plain(ps, f, st, sh, light, env, stats, bounce)
-    shade_kernel.shade_next(ps, f, st, sh.rest, light, env, stats, bounce)
+        return _shade_next_plain(ps, f, st, sh, *nee, stats, bounce)
+    shade_kernel.shade_next(ps, f, st, sh.rest, nee, stats, bounce)
     return st, stats
 
 
@@ -479,9 +515,8 @@ def _bounce(ps: PackedScene, f: _Flags, st: _State, stats, bounce: int):
             ps, st.o, st.d, max_t=torch.where(st.alive, BIG_T, -1.0))
     st, stats, sh = _shade_hit(ps, f, st, hit, stats, bounce)
     with trace.span("pt.nee"):
-        s, light, env = _nee(ps, f, st.s, hit.p, sh.N, sh.nee_lanes, bounce)
-    return _shade_next(ps, f, st._replace(s=s), sh, light, env, stats,
-                       bounce)
+        st, nee = _nee(ps, f, st, hit.p, sh, bounce)
+    return _shade_next(ps, f, st, sh, nee, stats, bounce)
 
 
 def _loop(ps: PackedScene, f: _Flags, st: _State, stats):

@@ -1,22 +1,24 @@
-"""The shading kernels of the Advanced Pathtracer's bounce (``csrc/shade.cu``).
+"""The kernels of the Advanced Pathtracer's bounce (``csrc/shade.cu``,
+``csrc/nee.cu``).
 
-``shade_hit`` runs after the closest-hit walk and ``shade_next`` after the
-shadow walk; between them, next-event estimation stays in PyTorch.  Their
-plain version is ``integrators/advanced.py``'s ``_shade_hit_plain`` and
+``shade_hit`` runs after the closest-hit walk, ``nee_sample`` after it
+(next-event estimation's samples and the shadow wave), and ``shade_next``
+after the occlusion walk of that wave.  Their plain version is
+``integrators/advanced.py``'s ``_shade_hit_plain``, ``_nee_plain`` and
 ``_shade_next_plain``, which the integrator runs for CPU tensors; these
 wrappers are the card's path and raise for any other device.  The kernels
 update the loop's own state (``advanced._State``) and ``stats`` in place
-and return nothing but the scratch between them: a (15, N) float32 pack
-(the oriented normal, the diffuse BRDF, the specular ray and its tint), a
-(2, N) uint8 pack (the branch code, and the lanes NEE serves as a bool row)
-and the hit point.
-Both launch on PyTorch's current stream and never synchronise.
+and return nothing but the scratch between them: ``shade_hit``'s, a (15,
+N) float32 pack (the oriented normal, the diffuse BRDF, the specular ray
+and its tint), a (2, N) uint8 pack (the branch code, and the lanes NEE
+serves as a bool row) and the hit point; ``nee_sample``'s, a ``Nee``.
+All three launch on PyTorch's current stream and never synchronise.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +34,9 @@ SF_ROWS = 15  # csrc/shade.cuh SF_ROWS: N 0-2, brdf 3-5, o 6-8, d 9-11, tint
 SF_N = 0
 SI_ROWS = 2  # SI_CODE 0, SI_NEE 1
 SI_NEE = 1
+NF_ROWS = 10  # csrc/shade.cuh NF_ROWS: the light's terms 0-4, the env's 5-9
+WF_ROWS = 6  # WF_ROWS: o 0-2, d 3-5
+WB_FACING, WB_PLANE = 1, 2  # a wave lane's flags
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 
 
@@ -41,21 +46,47 @@ class ShadeArgs(ctypes.Structure):
     _fields_ = [(name, _I) for name in (
         "n", "bounce", "strategy", "nee", "env_nee", "use_mis", "is_lights",
         "is_diffuse", "rr", "caustics", "ref_mis", "has_env", "n_lights",
-        "env_h", "env_w")] + [
+        "env_h", "env_w", "n_planes")] + [
         ("mat16", _P), ("light_prim", _P), ("light16", _P),
         ("prim_fwd", _P), ("prim_mat", _P), ("prim_r", _P),
         ("prim_type", _P), ("mat_emission", _P * 3), ("sky_bot", _P * 3),
         ("sky_top", _P * 3), ("env_pixels", _P), ("env_pdf_num", _P),
+        ("env_alias_prob", _P), ("env_alias_idx", _P), ("plane_n", _P * 3),
+        ("plane_d", _P),
         ("alive", _P), ("is_spec", _P), ("o", _P * 3), ("d", _P * 3),
         ("tp", _P * 3), ("total", _P * 3), ("prev_n", _P * 3), ("rng", _P),
         ("stack", _P), ("stack_stride", _I), ("stack_at", _P), ("pre", _P),
         ("pre_stride", _I), ("hit_id", _P), ("mat_id", _P), ("t", _P),
         ("p", _P * 3), ("n_hit", _P * 3), ("node_visits", _P),
         ("tri_tests", _P), ("stats", _P), ("counters", _P), ("sf", _P),
-        ("si", _P), ("facing", _P), ("occluded", _P), ("nl_dot_l", _P),
-        ("area", _P), ("dist_sq", _P), ("rcp_pdf", _P), ("n_dot_l", _P),
-        ("slot", _P), ("facing_e", _P), ("occluded_e", _P), ("n_dot_e", _P),
-        ("pdf_e", _P), ("rad_e", _P * 3)]
+        ("si", _P), ("nf", _P), ("nslot", _P), ("wf", _P), ("w_t", _P),
+        ("w_ign", _P), ("w_flags", _P), ("w_prim", _P)]
+
+
+class Nee(NamedTuple):
+    """``nee_sample``'s scratch, which ``shade_next`` reads after the walk:
+    the samples' terms (``NF_ROWS``, N) float32, the picked light slot (N,)
+    int32, and the shadow wave of w = N a sample kind (the light's queries
+    in lanes [0, N), the environment's after them): its rays (``WF_ROWS``,
+    w) float32 (unwritten where t0 < 0), its t0 (w,) float32 (max_t
+    shortened by the planes; a tensor of its own, so a caller that keeps it
+    keeps 4 B a query), its ignored prims (w,) int32, its flags (w,) uint8
+    (``WB_FACING``, ``WB_PLANE``), and the occlusion walk's prim (w,) int32,
+    None until the walk."""
+
+    terms: torch.Tensor
+    slot: torch.Tensor
+    wave: torch.Tensor
+    t0: torch.Tensor
+    ign: torch.Tensor
+    flags: torch.Tensor
+    prim: Optional[torch.Tensor]
+
+    def rays(self):
+        """The wave as the walk takes it: (o, d, t0, ignored prim)."""
+        w = self.wave
+        return Vec3(w[0], w[1], w[2]), Vec3(w[3], w[4], w[5]), self.t0, \
+            self.ign
 
 
 _ARGS_CHECKED = False
@@ -65,12 +96,14 @@ _ARGS_CHECKED = False
 _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 F32, I64, BOOL, U8 = torch.float32, torch.int64, torch.bool, torch.uint8
+I32 = torch.int32
 
 
 def _scene(ps, dev) -> dict:
     """The scene tables' ShadeArgs fields, checked."""
     L = int(ps.light_prim.shape[0])
     M, K = int(ps.mat16.shape[0]), int(ps.prim_type.shape[0])
+    P = int(ps.plane_d.shape[0])
     for name, x, dt, shape in (
             ("mat16", ps.mat16, F32, (None, 16)),
             ("light_prim", ps.light_prim, I64, (L,)),
@@ -80,30 +113,38 @@ def _scene(ps, dev) -> dict:
             ("prim_r", ps.prim_r, F32, (K,)),
             ("prim_type", ps.prim_type, I64, (K,)),
             ("env_pixels", ps.env_pixels, F32, (None, None, 3)),
-            ("env_pdf_num", ps.env_pdf_num, F32, (None,))):
+            ("env_pdf_num", ps.env_pdf_num, F32, (None,)),
+            ("env_alias_prob", ps.env_alias_prob, F32, (None,)),
+            ("env_alias_idx", ps.env_alias_idx, I64, (None,)),
+            ("plane_d", ps.plane_d, F32, (P,))):
         _table(name, x, dt, shape, dev)
     for name, v, shape in (("mat_emission", ps.mat_emission, (M,)),
                            ("sky_bot", ps.sky_bot, ()),
-                           ("sky_top", ps.sky_top, ())):
+                           ("sky_top", ps.sky_top, ()),
+                           ("plane_n", ps.plane_n, (P,))):
         for c, x in zip("xyz", v):
             _table(f"{name}.{c}", x, F32, shape, dev)
     he, we, _ = ps.env_pixels.shape
-    if int(ps.env_pdf_num.shape[0]) != he * we:
-        raise ValueError("env_pdf_num must hold one value a texel")
+    for name in ("env_pdf_num", "env_alias_prob", "env_alias_idx"):
+        if int(getattr(ps, name).shape[0]) != he * we:
+            raise ValueError(f"{name} must hold one value a texel")
     return dict(
-        has_env=he > 1 or we > 1, n_lights=L, env_h=he, env_w=we,
+        has_env=he > 1 or we > 1, n_lights=L, env_h=he, env_w=we, n_planes=P,
         mat16=ps.mat16.data_ptr(), light_prim=ps.light_prim.data_ptr(),
         light16=ps.light16.data_ptr(), prim_fwd=ps.prim_fwd.data_ptr(),
         prim_mat=ps.prim_mat.data_ptr(), prim_r=ps.prim_r.data_ptr(),
         prim_type=ps.prim_type.data_ptr(),
         mat_emission=_ptrs(ps.mat_emission), sky_bot=_ptrs(ps.sky_bot),
         sky_top=_ptrs(ps.sky_top), env_pixels=ps.env_pixels.data_ptr(),
-        env_pdf_num=ps.env_pdf_num.data_ptr())
+        env_pdf_num=ps.env_pdf_num.data_ptr(),
+        env_alias_prob=ps.env_alias_prob.data_ptr(),
+        env_alias_idx=ps.env_alias_idx.data_ptr(), plane_n=_ptrs(ps.plane_n),
+        plane_d=ps.plane_d.data_ptr())
 
 
 def _common(ps, f, st, bounce: int) -> ShadeArgs:
-    """The checks and arguments both kernels share: flags, scene tables,
-    the state."""
+    """The checks and arguments the three kernels share: flags, scene
+    tables, the state."""
     n = st.alive.shape[0]
     dev = st.alive.device
     s = st.s
@@ -111,7 +152,7 @@ def _common(ps, f, st, bounce: int) -> ShadeArgs:
                                        Strategy.BLUE_NOISE)
             and s.pre.shape[0] == 0):
         raise ValueError(
-            "shade kernels: the first bounce of a stratified or blue-noise "
+            "bounce kernels: the first bounce of a stratified or blue-noise "
             "sampler needs the pass's first-bounce bases (a per-ray sample "
             "index has none); no frame path builds such a sampler")
     _lanes(n, dev, [("alive", st.alive, BOOL), ("is_spec", st.is_spec, BOOL),
@@ -227,54 +268,80 @@ def nee_lanes(scratch) -> torch.Tensor:
     return scratch[1][SI_NEE].view(torch.bool)
 
 
-def next_args(ps, f, st, scratch, light, env, stats, bounce: int):
-    """``shade_next``'s checked arguments."""
-    args = _common(ps, f, st, bounce)
-    n, dev = args.n, st.alive.device
+def _scratch(n: int, dev, scratch):
+    """Check ``shade_hit``'s scratch; returns its hit point."""
     sf, si, p = scratch
     _table("sf", sf, F32, (SF_ROWS, n), dev)
     _table("si", si, U8, (SI_ROWS, n), dev)
     _lanes(n, dev, _vec("hit.p", p))
+    return p
+
+
+def nee_args(ps, f, st, scratch, bounce: int):
+    """``nee_sample``'s checked arguments and its new scratch (a ``Nee``
+    without the walk's prim)."""
+    args = _common(ps, f, st, bounce)
+    n, dev = args.n, st.alive.device
+    waves = int(bool(f.nee)) + int(bool(f.env_nee))
+    if not waves:
+        raise ValueError("nee_sample: next-event estimation is off")
+    p = _scratch(n, dev, scratch)
+    w = waves * n
+    floats = torch.empty(NF_ROWS * n + WF_ROWS * w, dtype=F32, device=dev)
+    ints = torch.empty(n + w, dtype=I32, device=dev)
+    nee = Nee(terms=floats[:NF_ROWS * n].view(NF_ROWS, n), slot=ints[:n],
+              wave=floats[NF_ROWS * n:].view(WF_ROWS, w),
+              t0=torch.empty(w, dtype=F32, device=dev), ign=ints[n:],
+              flags=torch.empty(w, dtype=U8, device=dev), prim=None)
     args.p = _ptrs(p)
+    args.sf, args.si = scratch[0].data_ptr(), scratch[1].data_ptr()
+    args.nf, args.nslot = nee.terms.data_ptr(), nee.slot.data_ptr()
+    args.wf, args.w_t = nee.wave.data_ptr(), nee.t0.data_ptr()
+    args.w_ign = nee.ign.data_ptr()
+    args.w_flags = nee.flags.data_ptr()
+    return args, nee
+
+
+def nee_sample(ps, f, st, scratch, bounce: int) -> Nee:
+    """Next-event estimation's samples (light, then environment, as the
+    flags ask) for the lanes ``shade_hit``'s ``scratch`` marks, and their
+    shadow wave with the plane pass done: draws from ``st``'s RNG state in
+    place.  Returns the ``Nee`` for the walk and ``shade_next``."""
+    args, nee = nee_args(ps, f, st, scratch, bounce)
+    _launch("nee_sample", args, st.alive.device)
+    return nee
+
+
+def next_args(ps, f, st, scratch, nee, stats, bounce: int):
+    """``shade_next``'s checked arguments."""
+    args = _common(ps, f, st, bounce)
+    n, dev = args.n, st.alive.device
+    args.p = _ptrs(_scratch(n, dev, scratch))
     _stats(stats, dev)
-    if (light is None) == bool(f.nee) or (env is None) == bool(f.env_nee):
-        raise ValueError("shade_next: NEE's samples must follow the flags")
-    if light is not None:
-        _lanes(n, dev, [("facing", light.facing, BOOL),
-                        ("occluded", light.occluded, BOOL),
-                        ("nl_dot_l", light.nl_dot_l, F32),
-                        ("area", light.area, F32),
-                        ("dist_sq", light.dist_sq, F32),
-                        ("rcp_pdf", light.rcp_pdf, F32),
-                        ("n_dot_l", light.n_dot_l, F32),
-                        ("slot", light.slot, I64)])
-        args.facing, args.occluded = (light.facing.data_ptr(),
-                                      light.occluded.data_ptr())
-        args.nl_dot_l, args.area = (light.nl_dot_l.data_ptr(),
-                                    light.area.data_ptr())
-        args.dist_sq, args.rcp_pdf = (light.dist_sq.data_ptr(),
-                                      light.rcp_pdf.data_ptr())
-        args.n_dot_l, args.slot = (light.n_dot_l.data_ptr(),
-                                   light.slot.data_ptr())
-    if env is not None:
-        _lanes(n, dev, [("facing_e", env.facing, BOOL),
-                        ("occluded_e", env.occluded, BOOL),
-                        ("n_dot_e", env.n_dot_e, F32), ("pdf_e", env.pdf, F32)]
-               + _vec("rad_e", env.radiance))
-        args.facing_e, args.occluded_e = (env.facing.data_ptr(),
-                                          env.occluded.data_ptr())
-        args.n_dot_e, args.pdf_e = env.n_dot_e.data_ptr(), env.pdf.data_ptr()
-        args.rad_e = _ptrs(env.radiance)
-    args.stats, args.sf, args.si = (stats.data_ptr(), sf.data_ptr(),
-                                    si.data_ptr())
+    waves = int(bool(f.nee)) + int(bool(f.env_nee))
+    if (nee is None) != (waves == 0) or (nee is not None
+                                         and nee.prim is None):
+        raise ValueError("shade_next: NEE's samples and their walk must "
+                         "follow the flags")
+    if nee is not None:
+        w = waves * n
+        _table("nee.terms", nee.terms, F32, (NF_ROWS, n), dev)
+        _lanes(w, dev, [("nee.flags", nee.flags, U8),
+                        ("nee.prim", nee.prim, I32)])
+        _lanes(n, dev, [("nee.slot", nee.slot, I32)])
+        args.nf, args.nslot = nee.terms.data_ptr(), nee.slot.data_ptr()
+        args.w_flags, args.w_prim = (nee.flags.data_ptr(),
+                                     nee.prim.data_ptr())
+    args.stats, args.sf, args.si = (stats.data_ptr(), scratch[0].data_ptr(),
+                                    scratch[1].data_ptr())
     return args
 
 
-def shade_next(ps, f, st, scratch, light, env, stats, bounce: int) -> None:
-    """The shading after the shadow walk, from ``shade_hit``'s scratch and
-    NEE's ``light`` / ``env`` samples (``advanced._LightNee`` /
-    ``_EnvNee``, or None when off); ``st.s`` is the sampler NEE left.
-    Updates ``st`` and ``stats`` in place."""
+def shade_next(ps, f, st, scratch, nee, stats, bounce: int) -> None:
+    """The shading after the occlusion walk, from ``shade_hit``'s scratch
+    and ``nee_sample``'s ``nee`` with the walk's prim (None when NEE is
+    off); ``st.s`` holds the RNG state NEE left.  Updates ``st`` and
+    ``stats`` in place."""
     _launch("shade_next",
-            next_args(ps, f, st, scratch, light, env, stats, bounce),
+            next_args(ps, f, st, scratch, nee, stats, bounce),
             st.alive.device)

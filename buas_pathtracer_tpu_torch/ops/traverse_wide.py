@@ -16,10 +16,11 @@ through one-hot matmuls and MXU transposes to suit the TPU; on the card
 the ``hit_record`` kernel reads one row a lane, and on the CPU the plain
 version indexes tensors.
 
-Every scene query of the integrators and the viewer comes through these two
-functions, so they hold the ``BUAS_TRAVERSAL=threaded`` switch: it sends
-the query to the threaded oracle walk of ``ops/traverse.py`` instead, as
-the JAX package's ``ops/traverse.intersect_scene`` does.
+Every scene query of the integrators and the viewer comes through these
+functions (``occlusion_walk`` takes the card's NEE wave, whose plane pass
+``nee_sample`` did), so they hold the ``BUAS_TRAVERSAL=threaded`` switch:
+it sends the query to the threaded oracle walk of ``ops/traverse.py``
+instead, as the JAX package's ``ops/traverse.intersect_scene`` does.
 """
 
 from __future__ import annotations
@@ -61,15 +62,25 @@ def _traverse(ps: PackedScene, o: Vec3, d: Vec3, t0, ignored_prim,
     return t, prim.to(torch.int64), tri.to(torch.int64), bv, bw, stats
 
 
+def occlusion_walk(ps: PackedScene, o: Vec3, d: Vec3, t0, ignored_prim):
+    """The occlusion walk of a wave whose plane pass is done (``t0``
+    shortened by it; ``o``, ``d`` and ``t0`` contiguous, as ``nee_sample``
+    leaves them): the walk's prim, int32 (>= 0: a primitive blocks the
+    query).  ``BUAS_TRAVERSAL=threaded`` sends the wave to the threaded
+    walk."""
+    if traverse.use_threaded():
+        _, prim, *_ = traverse._traverse_bvh(ps, o, d, t0, ignored_prim,
+                                             occlusion=True)
+        return prim.to(torch.int32)
+    return _walk(ps, o, d, t0, ignored_prim, occlusion=True)[1]
+
+
 def intersect_shadow_ray(ps: PackedScene, ray_o: Vec3, ray_d: Vec3, max_t,
                          ignored_prim):
     """Occlusion query (intersection.cpp:600-604). True if anything blocks."""
-    if traverse.use_threaded():
-        return traverse.intersect_shadow_ray_threaded(ps, ray_o, ray_d,
-                                                      max_t, ignored_prim)
     t_pl, plane_idx = _intersect_planes(ps, ray_o, ray_d, max_t)
-    _, prim, *_ = _traverse(ps, ray_o, ray_d, t_pl, ignored_prim,
-                            occlusion=True)
+    prim = occlusion_walk(ps, _contiguous(ray_o), _contiguous(ray_d), t_pl,
+                          ignored_prim)
     return (prim >= 0) | (plane_idx >= 0)
 
 

@@ -96,7 +96,7 @@ _RANGE = torch._C._profiler._RecordFunctionFast
 # the port's own kernels, by launch counter
 KERNELS = ("closest", "occlusion", "split_closest", "split_occlusion",
            "post_rgba8", "tristream_closest", "shade_hit", "shade_next",
-           "hit_record")
+           "nee_sample", "hit_record")
 
 
 class _Null:

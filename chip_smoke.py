@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --shade    # the shading kernels alone ([16])
     python3 chip_smoke.py --hit      # the hit record alone ([16h])
+    python3 chip_smoke.py --nee      # NEE's kernel alone ([16n])
 
 Builds the port's CUDA kernels from ``buas_pathtracer_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card, renders
@@ -17,11 +18,16 @@ the build), then does the same for the big-scene path: the stress frame
 through the split-table walk, the closest-hit queries' hit record
 (``hit_record``) at bounces 0 and 1 of the bench and stress frames against
 its plain version ([16h]; ``--hit`` runs only these after the build), and
-the dense triangle-stream entry point on the bench scene.  Then the
+the dense triangle-stream entry point on the bench scene.  NEE's kernel
+(``nee_sample``), the walk of its wave and ``shade_next`` are held to their
+plain version at bounces 0 and 1 of the bench, stress and hero frames and
+timed ([16n]; ``--nee`` runs only these and the hero frame against its
+plain version after the build).  Then the
 integrator layer: the env-lit hero frame (``tools/hero_render.py``'s scene
 with ``gallery/hero_sky.hdr``, 1920x1080, 8 bounces, env NEE) packed and
 rendered through ``device=None``, with its bounces' live counts, its
-breakdown and its waves held to the plain walk; Whitted, Ground Truth,
+breakdown, its waves held to the plain walk and one frame held bit for bit
+to the same frame with the plain shading and NEE; Whitted, Ground Truth,
 Normals and Distances at 1080p and the Whitted and Normals goldens;
 the blue-noise sampler built on the card equal to the CPU's, and a bench
 frame with it.  Then the session layer: the twelve built-in scenes through
@@ -826,15 +832,11 @@ def states_equal(a, b, entry, what):
                     f"{int((x != y).sum())} lanes")
 
 
-def run_shade(ps, scene, dev, card, report, W=1920, H=1080):
-    """[16] The shading kernels at the bench frame's shapes: the inputs of
-    bounces 0 and 1 recorded from a frame, each kernel held bit for bit to
-    the plain version, timed (its own device time under the profiler, and
-    CUDA events around the wrapper) beside the plain version's time and its
-    byte bound."""
+def record_bounces(ps, scene, dev, W=1920, H=1080):
+    """Render one frame with ``advanced._shade_hit`` wrapped, keeping the
+    inputs of bounces 0 and 1: {bounce: (flags, state, hit, stats)}."""
     import torch
     from buas_pathtracer_tpu_torch.integrators import advanced as adv
-    from buas_pathtracer_tpu_torch.ops import shade_kernel
     from buas_pathtracer_tpu_torch.runtime import film
     from buas_pathtracer_tpu_torch.runtime.render import render_frame
 
@@ -854,6 +856,21 @@ def run_shade(ps, scene, dev, card, report, W=1920, H=1080):
         torch.cuda.synchronize()
     finally:
         adv._shade_hit = real_hit
+    return inputs
+
+
+def run_shade(ps, scene, dev, card, report, W=1920, H=1080):
+    """[16] The shading kernels at the bench frame's shapes: the inputs of
+    bounces 0 and 1 recorded from a frame, each kernel held bit for bit to
+    the plain version (``shade_next`` after ``nee_sample`` and the walk,
+    which [16n] holds), timed (its own device time under the profiler, and
+    CUDA events around the wrapper) beside the plain version's time and its
+    byte bound."""
+    import torch
+    from buas_pathtracer_tpu_torch.integrators import advanced as adv
+    from buas_pathtracer_tpu_torch.ops import shade_kernel
+
+    inputs = record_bounces(ps, scene, dev, W, H)
     records = []
     for b in (0, 1):
         f, st0, hit, stats0 = inputs[b]
@@ -872,13 +889,17 @@ def run_shade(ps, scene, dev, card, report, W=1920, H=1080):
                     sha.N, shade_kernel.normal(scratch)))):
             raise AssertionError(f"[16] shade_hit bounce {b}: stats, NEE "
                                  f"lanes or normals differ")
-        after_hit, stats_hit = clone_state(k), sk.clone()
-        s, light, env = adv._nee(ps, f, a.s, hit.p, sha.N, lanes, b)
+        s, light, env = adv._nee_plain(ps, f, a.s, hit.p, sha.N, lanes, b)
         a_hit, sa_hit = a, sa.clone()
         a2, sa = adv._shade_next_plain(ps, f, a._replace(s=s), sha, light,
                                        env, sa, b)
-        k = k._replace(s=k.s._replace(state=s.state.clone()))
-        shade_kernel.shade_next(ps, f, k, scratch, light, env, sk, b)
+        nee = adv._shadow_walk(ps, shade_kernel.nee_sample(ps, f, k, scratch,
+                                                            b))
+        after_nee, stats_hit = clone_state(k), sk.clone()
+        if not torch.equal(after_nee.s.state[entry], s.state[entry]):
+            raise AssertionError(f"[16] nee_sample bounce {b}: the live "
+                                 f"lanes' RNG state differs")
+        shade_kernel.shade_next(ps, f, k, scratch, nee, sk, b)
         states_equal(a2, k, entry, f"[16] shade_next bounce {b}")
         if not torch.equal(sa, sk):
             raise AssertionError(f"[16] shade_next bounce {b}: stats differ")
@@ -890,7 +911,7 @@ def run_shade(ps, scene, dev, card, report, W=1920, H=1080):
         counts = {c: int((entry & (code == v)).sum())
                   for c, v in (("reflect", 1), ("refract", 2),
                                ("diffuse", 3))}
-        push = int((after_hit.stack_at > st0.stack_at).sum())
+        push = int((after_nee.stack_at > st0.stack_at).sum())
         base = live if b == 0 and f.strategy != 0 else 0
         hb = SHADE_HIT_BYTES
         hit_bytes = ((n - live) * hb["dead"] + missed * hb["missed"]
@@ -909,10 +930,8 @@ def run_shade(ps, scene, dev, card, report, W=1920, H=1080):
                                           stats0.clone(), b)
 
         def next_fn():
-            st = clone_state(after_hit)
-            return shade_kernel.shade_next(
-                ps, f, st._replace(s=st.s._replace(state=s.state.clone())),
-                scratch, light, env, stats_hit.clone(), b)
+            return shade_kernel.shade_next(ps, f, clone_state(after_nee),
+                                           scratch, nee, stats_hit.clone(), b)
 
         for name, fn, plain, nbytes in (
                 ("shade_hit", hit_fn, lambda: adv._shade_hit_plain(
@@ -939,6 +958,158 @@ def run_shade(ps, scene, dev, card, report, W=1920, H=1080):
                 device_ms=dev_ms, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes", bytes=nbytes,
                 **ptxas_fields(report, f"{name}_kernel")))
+    return records
+
+
+# bytes one lane of each class moves through nee_sample (csrc/nee.cu's
+# note; light rows from cache): a dead lane reads its alive flag and writes
+# t0 and flags a query kind; a live lane NEE does not serve also reads its
+# NEE flag and RNG state and writes its RNG state; a served lane reads its
+# normal and hit point too, and writes a light sample's terms, slot and
+# query, an environment sample's terms and query (and reads its alias entry
+# and texel).  At bounce 0 a served lane reads its first-bounce bases:
+# stratified 8 B a draw, blue noise 4 B a 1-D draw and 8 B a 2-D one.
+NEE_BYTES = dict(dead=1, unserved=18, served=42, query=5, light=57, env=81)
+NEE_BASES = {1: (12, 8), 2: (16, 8)}  # strategy: (light draws, env draw)
+
+
+def nee_bytes(f, n, live, served, bounce):
+    """The least bytes of one nee_sample launch (``NEE_BYTES``)."""
+    nb = NEE_BYTES
+    kinds = int(bool(f.nee)) + int(bool(f.env_nee))
+    per = nb["query"] * kinds
+    total = ((n - live) * (nb["dead"] + per)
+             + (live - served) * (nb["unserved"] + per)
+             + served * (nb["served"] + nb["light"] * bool(f.nee)
+                         + nb["env"] * bool(f.env_nee)))
+    if bounce == 0 and int(f.strategy) in NEE_BASES:
+        light, env = NEE_BASES[int(f.strategy)]
+        total += served * (light * bool(f.nee) + env * bool(f.env_nee))
+    return total
+
+
+def nee_equal(ps, f, plain, nee, state, lanes, entry, what):
+    """Raise unless ``nee_sample`` and the walk of its wave (``nee``, with
+    the RNG ``state`` it left) equal the plain version (``plain``: its
+    sampler, light and env samples and shadow queries) bit for bit: the
+    live lanes' RNG state; on the lanes NEE serves, the slot, the samples'
+    terms and the queries' rays and ignored prim; on every lane, facing,
+    occlusion, the plane flag and t0 after the plane pass."""
+    import torch
+    from buas_pathtracer_tpu_torch.ops import shade_kernel, traverse
+    s, light, env, queries = plain
+
+    def eq(x, y, name):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: {name} differs in "
+                                 f"{int((x != y).sum())} values")
+
+    eq(s.state[entry], state[entry], "the live lanes' RNG state")
+    n = int(lanes.shape[0])
+    samples = [(k, x) for k, x in (("light", light), ("env", env))
+               if x is not None]
+    o, d, t0, ign = nee.rays()
+    for k, ((kind, sample), query) in enumerate(zip(samples, queries)):
+        sl = slice(k * n, (k + 1) * n)
+        flags = nee.flags[sl]
+        plane = (flags & shade_kernel.WB_PLANE) != 0
+        eq((flags & shade_kernel.WB_FACING) != 0, sample.facing,
+           f"{kind} facing")
+        eq((nee.prim[sl] >= 0) | plane, sample.occluded, f"{kind} occluded")
+        t_pl, plane_idx = traverse._intersect_planes(ps, *query[:3])
+        eq(plane, plane_idx >= 0, f"{kind} plane flag")
+        eq(t0[sl], t_pl, f"{kind} t0")
+        for c in range(3):
+            eq(o[c][sl][lanes], query[0][c][lanes], f"{kind} o")
+            eq(d[c][sl][lanes], query[1][c][lanes], f"{kind} d")
+        eq(ign[sl][lanes].long(), query[3][lanes], f"{kind} ignored prim")
+        T = nee.terms
+        rows = (((0, light.n_dot_l), (1, light.nl_dot_l), (2, light.area),
+                 (3, light.dist_sq), (4, light.rcp_pdf)) if kind == "light"
+                else ((5, env.n_dot_e), (6, env.pdf),
+                      *((7 + c, env.radiance[c]) for c in range(3))))
+        for row, x in rows:
+            eq(T[row][lanes], x[lanes], f"{kind} term {row}")
+        if kind == "light":
+            eq(nee.slot[lanes].long(), light.slot[lanes], "slot")
+
+
+def run_nee(cells, dev, card, report, W=1920, H=1080):
+    """[16n] NEE on the card (``nee_sample``, the walk of its wave, then
+    ``shade_next``) on the inputs of bounces 0 and 1 of each cell's
+    1920x1080 frame: held bit for bit to ``_nee_plain`` and
+    ``_shade_next_plain``, and ``nee_sample`` timed (its device time under
+    the profiler with the L2 warm and flushed, and CUDA events around the
+    wrapper) beside the plain samples' time and its byte bound."""
+    import torch
+    from buas_pathtracer_tpu_torch.integrators import advanced as adv
+    from buas_pathtracer_tpu_torch.ops import shade_kernel, traverse
+    records = []
+    for name, ps, scene in cells:
+        inputs = record_bounces(ps, scene, dev, W, H)
+        for b in (0, 1):
+            f, st0, hit, stats0 = inputs[b]
+            what = f"[16n] nee_sample {name} bounce {b}"
+            n = int(st0.alive.shape[0])
+            entry = st0.alive.clone()
+            a, sa, sha = adv._shade_hit_plain(ps, f, clone_state(st0), hit,
+                                              stats0.clone(), b)
+            k, sk = clone_state(st0), stats0.clone()
+            scratch = shade_kernel.shade_hit(ps, f, k, hit, sk, b)
+            states_equal(a, k, entry, f"{what}: shade_hit")
+            lanes = sha.nee_lanes
+            after_hit = clone_state(k)
+            plain = adv._nee_queries(ps, f, a.s, hit.p, sha.N, lanes, b)
+            s, light, env = adv._nee_plain(ps, f, a.s, hit.p, sha.N, lanes,
+                                           b)
+            nee = adv._shadow_walk(ps, shade_kernel.nee_sample(
+                ps, f, k, scratch, b))
+            nee_equal(ps, f, (s, light, env, plain[3]), nee, k.s.state,
+                      lanes, entry, what)
+            a2, sa = adv._shade_next_plain(ps, f, a._replace(s=s), sha,
+                                           light, env, sa, b)
+            shade_kernel.shade_next(ps, f, k, scratch, nee, sk, b)
+            states_equal(a2, k, entry, f"{what}: shade_next")
+            if not torch.equal(sa, sk):
+                raise AssertionError(f"{what}: stats differ")
+
+            def kern():
+                return shade_kernel.nee_sample(ps, f, clone_state(after_hit),
+                                               scratch, b)
+
+            def plain_fn():
+                qs = adv._nee_queries(ps, f, a.s, hit.p, sha.N, lanes, b)[3]
+                return [traverse._intersect_planes(ps, *q[:3]) for q in qs]
+
+            live, served = int(entry.sum()), int(lanes.sum())
+            nbytes = nee_bytes(f, n, live, served, b)
+            dev_ms = device_ms(kern, KERNEL_REPS, "nee_sample_kernel")
+            cold_ms = device_ms(kern, KERNEL_REPS, "nee_sample_kernel",
+                                flush=True)
+            if dev_ms is None or cold_ms is None:
+                raise AssertionError("the profiler recorded no nee_sample")
+            ms = cuda_ms(kern, KERNEL_REPS)
+            plain_ms = cuda_ms(plain_fn, PLAIN_REPS)
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            facing = sum(int(x.facing.sum()) for x in (light, env)
+                         if x is not None)
+            log(f"{what}: {n} lanes ({live} live, {served} served, {facing} "
+                f"queries facing, lights {int(ps.light_prim.shape[0])}, "
+                f"env {bool(f.env_nee)}): device time {dev_ms:.4f} ms, L2 "
+                f"cold {cold_ms:.4f} ms, events {ms:.4f} ms (with the "
+                f"state's copy), plain samples and plane pass "
+                f"{plain_ms:.3f} ms, bound {bound:.4f} ms "
+                f"({nbytes / 1e6:.1f} MB); NEE, walk and shade_next equal "
+                f"to plain ({card})")
+            records.append(dict(
+                k=f"N{b}", name=f"nee_sample {name} bounce {b}",
+                route="cuda", source="buas_pathtracer_tpu_torch/csrc/nee.cu",
+                replaces="no TPU kernel (XLA fuses the TPU's NEE)",
+                lanes=n, live=live, served=served,
+                parity="equal to plain (bit for bit)", device_ms=dev_ms,
+                device_ms_cold_l2=cold_ms, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", bytes=nbytes,
+                **ptxas_fields(report, "nee_sample_kernel")))
     return records
 
 
@@ -1505,6 +1676,47 @@ def wide_wave_records(ps, waves, wave_calls, launches, card, report, tag,
     return records
 
 
+def frame_equal_plain(ps, scene, dev, w, h, index, what):
+    """Raise unless one frame through the bounce's kernels (``shade_hit``,
+    ``nee_sample``, ``shade_next``) equals, bit for bit in its
+    accumulation and stats, the same frame with the bounce's shading and
+    NEE in their plain versions (the walks and the hit record stay the
+    card's in both).  Returns the frame's stats."""
+    import torch
+    from buas_pathtracer_tpu_torch.integrators import advanced as adv
+    from buas_pathtracer_tpu_torch.runtime import film
+    from buas_pathtracer_tpu_torch.runtime.render import render_frame
+
+    def nee_plain(ps_, f, st, p, sh, bounce):
+        s, light, env = adv._nee_plain(ps_, f, st.s, p, sh.N, sh.nee_lanes,
+                                       bounce)
+        return st._replace(s=s), (light, env)
+
+    def next_plain(ps_, f, st, sh, nee, stats, bounce):
+        return adv._shade_next_plain(ps_, f, st, sh, *nee, stats, bounce)
+
+    def one():
+        accum = film.new_accumulation_buffer(h, w, dev)
+        return render_frame(ps, scene.settings, scene.camera, accum, index,
+                            h=h, w=w, n_lights=scene.n_lights,
+                            has_medium=scene.has_medium, device=dev)
+
+    kern = one()
+    real = adv._shade_hit, adv._nee, adv._shade_next
+    adv._shade_hit, adv._nee, adv._shade_next = (adv._shade_hit_plain,
+                                                 nee_plain, next_plain)
+    try:
+        plain = one()
+    finally:
+        adv._shade_hit, adv._nee, adv._shade_next = real
+    torch.cuda.synchronize()
+    for x, y, field in zip(kern, plain, ("accumulation", "stats")):
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(f"{what}: the frame's {field} differs from "
+                                 f"the plain version's")
+    return kern[1]
+
+
 def run_hero(dev, card, report):
     """Phases 18 and 19: the hero scene packed and rendered at 1920x1080
     through ``device=None``, 1 spp, 8 bounces, env NEE.  Returns (kernel
@@ -1598,6 +1810,9 @@ def run_hero(dev, card, report):
         raise AssertionError("hero frame image is not finite / misshaped")
     frame_breakdown(lambda: one(99), packet, "wide_traverse", card,
                     frame_ms, "[19]")
+    frame_equal_plain(ps, scene, dev, W, H, 5, "[19] hero frame")
+    log(f"[19] hero frame (index 5): the kernels' accumulation and stats "
+        f"equal the plain shading and NEE's bit for bit")
     records = wide_wave_records(
         ps, waves, wave_calls, launches, card, report, "[19]", "hero ",
         (("primary", "K1", "buas_pathtracer_tpu/ops/pallas_packet.py:406"),
@@ -1742,6 +1957,8 @@ def launch_key(name):
         return name.split()[0]
     if name.startswith("hit_record"):
         return "hit_record"
+    if name.startswith("nee_sample"):
+        return "nee_sample"
     mode = "occlusion" if "occlusion" in name else "closest"
     return ("split_" if name.startswith("split") else "") + mode
 
@@ -2526,7 +2743,8 @@ def main(argv):
                   "split_traverse_closest", "split_traverse_occlusion",
                   "tristream_closest", "tristream_finish",
                   "post_rgba8_kernel", "shade_hit_kernel",
-                  "shade_next_kernel", "hit_record_kernel"):
+                  "shade_next_kernel", "nee_sample_kernel",
+                  "hit_record_kernel"):
         ptxas_fields(report, kname)  # fails when the report lacks one
     sass = sass_report()
     log(f"[2] cuobjdump -sass: "
@@ -2544,6 +2762,27 @@ def main(argv):
             cells.append((name, sc.pack(device=dev), sc))
         hit = run_hit(cells, dev, card, report)
         print(json.dumps({"kernels": hit, "card": card}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if "--nee" in argv:
+        from buas_pathtracer_tpu_torch.models.scenes import (
+            build_hero_scene, build_stress_scene)
+        cells = []
+        for name, build in (("bench", build_bench_scene),
+                            ("stress", build_stress_scene),
+                            ("hero", build_hero_scene)):
+            sc = build(1920, 1080)
+            cells.append((name, sc.pack(device=dev), sc))
+        nee = run_nee(cells, dev, card, report)
+        hero_ps, hero_sc = cells[2][1], cells[2][2]
+        frame_equal_plain(hero_ps, hero_sc, dev, 1920, 1080, 5,
+                          "[16n] hero frame")
+        log("[16n] hero frame (index 5): the kernels' accumulation and "
+            "stats equal the plain shading and NEE's bit for bit")
+        print(json.dumps({"kernels": nee, "card": card}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -2839,6 +3078,11 @@ def main(argv):
     # ---- 18-19. the hero frame ----
     hero_records, hero, hero_ps, hero_scene = run_hero(dev, card, report)
     records += hero_records
+
+    # ---- 16n. NEE on the bench, stress and hero frames' bounces ----
+    records += run_nee([("bench", ps, scene), ("stress", stress_ps,
+                                                stress_scene),
+                        ("hero", hero_ps, hero_scene)], dev, card, report)
     for r in records:  # the hero path's launches beside the bench path's
         if r["k"] in ("K1", "K2", "K7"):
             mode = "occlusion" if "occlusion" in r["name"] else "closest"

@@ -1,7 +1,8 @@
-// The lane logic of csrc/shade.cuh on the host, for the CPU tests
-// (tests/test_torch_shade.py): every lane in turn, the counts summed into
-// stats as the kernels' last block does.  Built with g++ -ffp-contract=off.
-#include "../../buas_pathtracer_tpu_torch/csrc/shade.cuh"
+// The lane logic of csrc/shade.cuh and csrc/nee.cuh on the host, for the
+// CPU tests (tests/test_torch_shade.py): every lane in turn, the counts
+// summed into stats as the kernels' last block does.  Built with g++
+// -ffp-contract=off.
+#include "../../buas_pathtracer_tpu_torch/csrc/nee.cuh"
 
 extern "C" int shade_args_size() { return (int)sizeof(shade::Args); }
 
@@ -11,6 +12,10 @@ extern "C" void shade_hit_host(const shade::Args *a) {
   a->stats[0] = a->stats[0] + (float)rays;
   a->stats[1] = a->stats[1] + (float)*a->node_visits;
   a->stats[2] = a->stats[2] + (float)*a->tri_tests;
+}
+
+extern "C" void nee_sample_host(const shade::Args *a) {
+  for (int64_t i = 0; i < a->n; ++i) shade::nee_lane(*a, i);
 }
 
 extern "C" void shade_next_host(const shade::Args *a) {

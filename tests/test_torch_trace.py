@@ -414,8 +414,9 @@ def test_card_waits_are_the_syncs_and_spans_cover_the_frame():
     rec = trace.records()[-1]
     assert len(sites) == rec.waits, (sites, rec.sites)
     assert rec.launches["closest"] == rec.launches["occlusion"] \
-        == rec.launches["shade_hit"] == rec.launches["shade_next"] \
-        == len(rec.bounces) and rec.launches["post_rgba8"] == 1
+        == rec.launches["shade_hit"] == rec.launches["nee_sample"] \
+        == rec.launches["shade_next"] == len(rec.bounces) \
+        and rec.launches["post_rgba8"] == 1
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
