@@ -29,7 +29,7 @@ def readings(cell, seed: int, readbacks: int, device,
              dtype=torch.bfloat16) -> dict:
     """The control's compared numbers for one seed."""
     from benchmark.harness import check
-    from benchmark.reference import film
+    from benchmark.reference import film, scene
 
     mix = cell.mix
     w, h = int(mix["width"]), int(mix["height"])
@@ -38,11 +38,12 @@ def readings(cell, seed: int, readbacks: int, device,
     _, radius = film.find_filter(data.filter_name)
     every = int(mix["readback_every"]) * int(mix["spp"])
     _, passes, tiles = check.judged(plan, readbacks, every, radius)
+    rs = scene.build(data, device)
+    plan, _ = check.geometry_first(rs, w, h, plan, device)
     first = seed & 0xFFFFFFFF
-    ref = check.reference_tiles(data, w, h, plan, first, passes, tiles,
-                                device)
-    low = check.reference_tiles(data, w, h, plan, first, passes, tiles,
-                                device, dtype)
+    ref = check.reference_tiles(rs, w, h, plan, first, passes, tiles, device)
+    low = check.reference_tiles(rs, w, h, plan, first, passes, tiles, device,
+                                dtype)
     return dict(seed=seed, passes=passes, tiles=tiles,
                 **check.numbers(low, ref))
 

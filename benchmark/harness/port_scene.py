@@ -1,7 +1,8 @@
 """Hand a configuration's ``SceneData`` to the program through its public
 ``Scene`` API: materials, planes, primitives and meshes in the order the
-data lists them, the camera, the settings and the post settings.  The
-program registers lights and packs the scene itself."""
+data lists them, the camera, the settings, the post settings and the
+environment map, read by the program's own loader as its scene builders
+read it.  The program registers lights and packs the scene itself."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from buas_pathtracer_tpu_torch.models.materials import Material
 from buas_pathtracer_tpu_torch.models.mesh import Mesh
 from buas_pathtracer_tpu_torch.models.scene import (PostProcessSettings,
                                                     Scene, SceneSettings)
+from buas_pathtracer_tpu_torch.utils.assets import load_environment_map
 
 from .scene_data import SceneData
 
@@ -57,4 +59,10 @@ def build(data: SceneData) -> Scene:
             sc.add_mesh(p["mat"], meshes[p["mesh"]], xf)
         else:
             raise ValueError(f"unknown primitive type {p['type']!r}")
+    if data.env_path is not None:
+        env = load_environment_map(data.env_file)
+        if env is None:  # never the gradient sky in the map's place
+            raise FileNotFoundError(f"{data.name}: cannot read the "
+                                    f"environment map {data.env_path}")
+        sc.env_map = env
     return sc

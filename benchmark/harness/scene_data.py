@@ -3,11 +3,11 @@
 A configuration (``benchmark/configs/<name>.py``) fills a ``SceneData``
 from its source's own description: materials, planes, spheres, boxes and
 mesh instances with their (3, 4) forward and inverse transforms, the
-camera, the render settings and the post settings.  Everything is numpy or
-Python values; nothing here imports the program or torch.  The harness hands
-the data to the program through its public ``Scene`` API
-(``harness/port_scene.py``); the reference reads it as it is
-(``reference/scene.py``).
+camera, the render settings, the post settings and the environment map's
+file.  Everything is numpy or Python values; nothing here imports the
+program or torch.  The harness hands the data to the program through its
+public ``Scene`` API (``harness/port_scene.py``); the reference reads it as
+it is (``reference/scene.py``).
 
 The helpers below (affine products, the camera frame, the icosphere) are
 frozen copies of the arithmetic the upstream scene descriptions use, so a
@@ -17,10 +17,14 @@ configuration describes its scene the way the source does.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 # material flags (scene.h)
 FLAG_CHECKERS = 0x2
@@ -44,10 +48,19 @@ class SceneData:
     planes: List[Dict] = field(default_factory=list)
     prims: List[Dict] = field(default_factory=list)
     meshes: List[Dict] = field(default_factory=list)
+    # an equirect environment map (a Radiance .hdr file), relative to the
+    # repository's root; None lights misses by the gradient sky
+    env_path: Optional[str] = None
 
     def __post_init__(self):
         if not self.materials:
             self.materials.append(material(ior=1.0, is_medium=True))
+
+    @property
+    def env_file(self) -> Optional[str]:
+        """The environment map's absolute path, or None."""
+        return None if self.env_path is None else os.path.join(
+            ROOT, self.env_path)
 
     def add_material(self, m: Dict) -> int:
         self.materials.append(m)

@@ -8,13 +8,26 @@ Russian roulette.  Every ray carries its own state; the loop runs
 ``max_bounce_count`` bounces or until no ray lives.  Sample dimensions are
 drawn in the source's order, so a ray's random numbers depend only on its
 pixel and sample index.
+
+With an environment map (``envmap.py``) a ray that misses sees the map
+instead of the gradient sky, and, when next-event estimation and env NEE
+are both on, every NEE bounce also samples the map: after the light's
+draws, ``ENV_LIGHTING`` picks a direction from the map's alias table, a
+shadow ray with no ignored primitive runs to ``BIG_T``, and the map's
+radiance comes in weighted by the balance heuristic against the BRDF's
+pdf.  A BRDF-sampled ray that then reaches the map weighs the same
+heuristic from the other side; specular and primary rays see the map
+whole.  The source stubbed env NEE (integrators.cpp:230-233), so this
+follows the renderer's own extension, two details included: on a miss the
+BRDF's pdf clamps its cosine at zero (at a light it does not), and env NEE
+runs in a scene without lights too.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import rng
+from . import envmap, rng
 from . import sampler as smp
 from .scene import PRIM_SPHERE, RefScene
 from .shading import (cbrt, checker, fresnel_dielectric,
@@ -102,6 +115,9 @@ def trace(rs: RefScene, tracer: Tracer, s: smp.Sampler, o: Vec3, d: Vec3):
     n = o.x.shape[0]
     dev = o.x.device
     nee = bool(st["next_event_estimation"]) and int(rs.lights.shape[0]) > 0
+    env = rs.env
+    env_nee = bool(st["next_event_estimation"]) and env is not None \
+        and bool(st["env_nee"])
     is_lights = bool(st["importance_sample_lights"])
     is_diffuse = bool(st["importance_sample_diffuse"])
     use_mis = bool(st["use_mis"])
@@ -121,8 +137,20 @@ def trace(rs: RefScene, tracer: Tracer, s: smp.Sampler, o: Vec3, d: Vec3):
         hit = tracer.closest(o, d, torch.where(alive, BIG_T, -1.0))
         found = hit.valid & alive
         missed = ~hit.valid & alive
-        total = vwhere(missed, total + tp * sky(d, rs.sky_bot, rs.sky_top),
-                       total)
+        bg = sky(d, rs.sky_bot, rs.sky_top) if env is None \
+            else envmap.lookup(env, d)
+        if env_nee:
+            brdf_pdf = (torch.clamp(dot(prev_n, d), min=0.0) / PI) \
+                if is_diffuse else 1.0 / (2.0 * PI)
+            if use_mis:
+                w_bg = brdf_pdf / torch.clamp(brdf_pdf + envmap.pdf(env, d),
+                                              min=1e-30)
+                w_bg = torch.where(is_spec, 1.0, w_bg)
+            else:
+                w_bg = is_spec.to(torch.float32)
+            total = vwhere(missed, total + tp * bg * w_bg, total)
+        else:
+            total = vwhere(missed, total + tp * bg, total)
 
         # orientation and the materials on each side (the stack's top)
         cos_i0 = -dot(d, hit.n)
@@ -229,6 +257,23 @@ def trace(rs: RefScene, tracer: Tracer, s: smp.Sampler, o: Vec3, d: Vec3):
             contrib = tp * brdf * lemit * (n_dot_l
                                            / torch.clamp(pdf, min=1e-30))
             total = vwhere(visible, total + contrib, total)
+
+        # next-event estimation towards the environment map
+        if env_nee:
+            s, de_u, de_v = smp.sample_2d(s, smp.ENV_LIGHTING, bounce)
+            d_e, pdf_e, rad_e = envmap.sample(env, de_u, de_v)
+            n_dot_e = dot(N, d_e)
+            facing = (n_dot_e > 0.0) & do_diffuse & found & ~t_emissive
+            occ = tracer.occluded(hit.p + d_e * EPSILON, d_e,
+                                  torch.where(facing, BIG_T, -1.0), None)
+            if use_mis:
+                pdf = pdf_e + ((n_dot_e / PI) if is_diffuse
+                               else 1.0 / (2.0 * PI))
+            else:
+                pdf = pdf_e
+            contrib = tp * brdf * rad_e * (n_dot_e
+                                           / torch.clamp(pdf, min=1e-30))
+            total = vwhere(facing & ~occ, total + contrib, total)
 
         # the indirect bounce
         s, il_u, il_v = smp.sample_2d(s, smp.INDIRECT_LIGHTING, bounce)

@@ -7,7 +7,9 @@ tile and ``radius`` pixels around it, inside the frame) is traced by the
 Advanced Pathtracer over the scene's primitives, splatted with the scene's
 filter, the passes summed in order from a zero buffer, and the sum turned
 into RGBA8 by the post pass.  It imports nothing of the program and reads
-only the configuration's ``SceneData``.
+only the configuration's ``SceneData``.  Both functions here take it or
+the ``RefScene`` built from it (``scene.build``), so that a check builds
+the scene once.
 """
 
 from __future__ import annotations
@@ -18,17 +20,50 @@ import torch
 from . import film, integrator, post, sampler as smp
 from . import scene as ref_scene
 from .camera import camera_tensors, primary_rays
-from .tracer import Tracer
+from .scene import RefScene
+from .tracer import BIG_T, Tracer
 
 RAYS_PER_BLOCK = 1 << 16
 
 
-def render_tiles(data, w: int, h: int, origins, size: int, first_index: int,
-                 passes: int, device, dtype=torch.float32) -> np.ndarray:
+def _built(scene, device) -> RefScene:
+    return scene if isinstance(scene, RefScene) else ref_scene.build(
+        scene, device)
+
+
+def _tile_pixels(origins, size: int, device):
+    """(rows, columns) of the tiles' pixels, (tiles, size, size) each."""
+    n_t = len(origins)
+    oy = torch.tensor([o[0] for o in origins], device=device)
+    ox = torch.tensor([o[1] for o in origins], device=device)
+    ar = torch.arange(size, device=device)
+    return ((oy[:, None, None] + ar[None, :, None]).expand(n_t, size, size),
+            (ox[:, None, None] + ar[None, None, :]).expand(n_t, size, size))
+
+
+def geometry_share(scene, w: int, h: int, origins, size: int,
+                   device) -> np.ndarray:
+    """(tiles,) float: the share of each tile's pixels whose primary ray,
+    with no AA jitter and through the lens's centre, hits the scene (a
+    primitive, a mesh or a plane) rather than the sky."""
+    rs = _built(scene, device)
+    cam = camera_tensors(rs.camera, device)
+    ty, tx = _tile_pixels(origins, size, device)
+    mid = torch.full((ty.numel(),), 0.5, dtype=torch.float32, device=device)
+    o, d, _ = primary_rays(cam, rs.settings, tx.reshape(-1), ty.reshape(-1),
+                           w, h, mid, mid, mid, mid)
+    hit = Tracer(rs).closest(o, d, torch.full_like(mid, BIG_T))
+    return hit.valid.reshape(len(origins), -1).to(torch.float32).mean(
+        1).cpu().numpy()
+
+
+def render_tiles(scene, w: int, h: int, origins, size: int,
+                 first_index: int, passes: int, device,
+                 dtype=torch.float32) -> np.ndarray:
     """(tiles, size, size, 4) uint8 of the tiles with top-left pixels
     ``origins`` [(y0, x0), ...] after ``passes`` passes; ``dtype`` is the
     ray-primitive arithmetic's precision (``tracer``)."""
-    rs = ref_scene.build(data, device)
+    rs = _built(scene, device)
     tracer = Tracer(rs, dtype)
     f, r = film.find_filter(rs.filter_name)
     cam = camera_tensors(rs.camera, device)
@@ -76,10 +111,7 @@ def render_tiles(data, w: int, h: int, origins, size: int, first_index: int,
     acc = torch.zeros(contrib.shape[1:], dtype=torch.float32, device=device)
     for k in range(passes):
         acc = acc + contrib[k]
-    ty = (oy[:, None, None] + torch.arange(size, device=device)[None, :, None]
-          ).expand(n_t, size, size)
-    tx = (ox[:, None, None] + torch.arange(size, device=device)[None, None, :]
-          ).expand(n_t, size, size)
+    ty, tx = _tile_pixels(origins, size, device)
     img = post.rgba8(acc, ty, tx, rs.post, post.dither_tile(device))
     return img.cpu().numpy()
 

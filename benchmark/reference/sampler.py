@@ -25,6 +25,7 @@ REFLECTANCE = 3
 DOF = 4
 AA = 5
 ROULETTE = 6
+ENV_LIGHTING = 7  # the environment map's next-event estimation
 
 STRATA = 8
 STRATA_COUNT = STRATA * STRATA

@@ -1,7 +1,8 @@
 """The reference's own tables, worked out from a configuration's
-``SceneData``: materials, planes, analytic primitives, lights, and every
-mesh instance's triangles and vertex normals in world space.  Nothing here
-reads a table the program made.
+``SceneData``: materials, planes, analytic primitives, lights, every mesh
+instance's triangles and vertex normals in world space, and the environment
+map with its sampling tables (``envmap.py``).  Nothing here reads a table
+the program made.
 
 The render settings and post settings start from the source's defaults
 (init_scene, raytracer.cpp:1424-1453; scene.h:64-90), which a
@@ -11,11 +12,12 @@ configuration overrides.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from . import envmap
 from .vec import Vec3
 
 PRIM_SPHERE = 2
@@ -85,6 +87,8 @@ class RefScene:
     tri_ng: torch.Tensor
     tri_has_n: torch.Tensor
     tri_prim: torch.Tensor
+    # the equirect environment map with its tables, None without one
+    env: Optional[envmap.EnvMap] = None
 
     @property
     def n_prims(self) -> int:
@@ -185,4 +189,6 @@ def build(data, device) -> RefScene:
         tri_na=_t(nrm[:, 0], device), tri_nb=_t(nrm[:, 1], device),
         tri_nc=_t(nrm[:, 2], device), tri_ng=_t(ng, device),
         tri_has_n=_t(has, device, torch.bool),
-        tri_prim=_t(own, device, torch.int64))
+        tri_prim=_t(own, device, torch.int64),
+        env=(envmap.build(data.env_file, device)
+             if data.env_path is not None else None))

@@ -119,7 +119,7 @@ def test_adding_a_config_mix_and_metric_edits_no_existing_file(tmp_path):
 
     b = root / "benchmark"
     (b / "configs" / "dummy.py").write_text(DUMMY_CONFIG)
-    mix = json.loads((b / "mixes" / "final-1080p.json").read_text())
+    mix = json.loads((b / "mixes" / "final-2160p.json").read_text())
     mix.update(width=64, height=32, why="a test mix")
     (b / "mixes" / "dummy-mix.json").write_text(json.dumps(mix))
     (b / "metrics" / "dummy_metric.py").write_text(DUMMY_METRIC)
@@ -142,7 +142,7 @@ def test_adding_a_config_mix_and_metric_edits_no_existing_file(tmp_path):
     assert c.mix["width"] == 64
     assert c.readers["dummy_metric"].read({"passes": 3}) == 6.0
     assert "dummy_metric" not in cells.resolve(
-        "bench.final-1080p", root=str(root)).readers
+        "bench.final-2160p", root=str(root)).readers
     after = _hashes(root / "benchmark")
     assert {k: after[k] for k in before} == before
     assert set(after) - set(before) == {

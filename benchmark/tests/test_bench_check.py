@@ -2,15 +2,22 @@
 CPU: a sound run passes; the control (the reference in the program's
 place, its ray arithmetic in bfloat16) fails every cell's limits; and a
 run with the timed path broken underneath comes out not correct, for each
-fault a one-chip cell can have."""
+fault a one-chip cell can have.  The same holds of an env-lit frame (the
+hero frame, which no cell renders yet, held to the limits bench held
+at 1080p), and there also of a program that drops env NEE or renders the
+gradient sky where the map belongs."""
 
+import json
+import os
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 from benchmark.harness import cells, check, control, window
+from benchmark.tests import hero_scene
 
 W, H = 48, 32
 
@@ -25,6 +32,20 @@ def small(name):
     c = cells.resolve(name)
     # a readback every frame: a run's first frame already gives one
     c.mix = dict(c.mix, width=W, height=H, readback_every=1)
+    return c
+
+
+def hero():
+    """An env-lit cell: the hero frame with its icospheres subdivided
+    (2, 1) times, the final-2160p mix at the tests' size, and the limits
+    that bench held at 1080p (``limits/bench.final-1080p.json``)."""
+    c = small("bench.final-2160p")
+    c.name, c.config_name = "hero.final-2160p", "hero"
+    with open(os.path.join(cells.BENCH_DIR, "limits",
+                           "bench.final-1080p.json")) as f:
+        c.limits = json.load(f)
+    c.config = SimpleNamespace(
+        describe=lambda w, h: hero_scene.describe(w, h, (2, 1)))
     return c
 
 
@@ -59,15 +80,26 @@ def test_the_judged_readback_and_tiles_follow_the_seed():
 
 
 def test_a_sound_run_is_correct():
-    v = run(small("bench.final-1080p"))
+    v = run(small("bench.final-2160p"))
     assert v["correct"] and v["values"] == {"px_off": 0.0, "lsb_mean": 0.0}
 
 
-@pytest.mark.parametrize("name", ["bench.final-1080p",
-                                  "week7_nicer.final-1080p",
+def test_a_sound_env_lit_run_is_correct():
+    v = run(hero())
+    assert v["correct"] and v["values"] == {"px_off": 0.0, "lsb_mean": 0.0}
+
+
+@pytest.mark.parametrize("name", ["bench.final-2160p",
+                                  "week7_nicer.final-2160p",
                                   "bench.preview-576p"])
 def test_the_control_fails_the_cells_limits(name):
     c = small(name)
+    got = control.readings(c, 2147483719, readbacks=2, device="cpu")
+    assert any(got[k] > float(c.limits[k]["limit"]) for k in check.NUMBERS)
+
+
+def test_the_control_fails_an_env_lit_frame():
+    c = hero()
     got = control.readings(c, 2147483719, readbacks=2, device="cpu")
     assert any(got[k] > float(c.limits[k]["limit"]) for k in check.NUMBERS)
 
@@ -109,11 +141,41 @@ def _answer_altered(mp):
     mp.setattr(post, "post_rgba8", altered)
 
 
+def _env_nee_dropped(mp):
+    """Env NEE left out of the program's integrator (misses then weigh
+    1, as with env NEE off)."""
+    from buas_pathtracer_tpu_torch.integrators import advanced
+    flags = advanced._flags
+    mp.setattr(advanced, "_flags",
+               lambda *a: flags(*a)._replace(env_nee=False))
+
+
+def _gradient_sky(mp):
+    """The gradient sky where the environment map belongs, on every
+    miss."""
+    from buas_pathtracer_tpu_torch.integrators import advanced
+    from buas_pathtracer_tpu_torch.ops.shading import sample_sky_gradient
+    mp.setattr(advanced, "sample_sky", lambda ps, d: sample_sky_gradient(
+        d, ps.sky_bot, ps.sky_top))
+
+
 @pytest.mark.parametrize("fault", [_unchanged, _half_left_out,
                                    _answer_altered],
                          ids=["state_unchanged", "half_left_out",
                               "answer_altered"])
 def test_a_broken_timed_path_is_not_correct(monkeypatch, fault):
     fault(monkeypatch)
-    v = run(small("bench.final-1080p"))
+    v = run(small("bench.final-2160p"))
+    assert v["correct"] is False, v["values"]
+
+
+@pytest.mark.parametrize("fault", [_unchanged, _half_left_out,
+                                   _answer_altered, _env_nee_dropped,
+                                   _gradient_sky],
+                         ids=["state_unchanged", "half_left_out",
+                              "answer_altered", "env_nee_dropped",
+                              "gradient_sky"])
+def test_a_broken_env_lit_path_is_not_correct(monkeypatch, fault):
+    fault(monkeypatch)
+    v = run(hero())
     assert v["correct"] is False, v["values"]

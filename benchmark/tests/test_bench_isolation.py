@@ -22,7 +22,7 @@ import json, sys, time
 sys.path.insert(0, ROOT)
 t0 = time.perf_counter()
 from benchmark.harness import cells, window
-cell = cells.resolve("bench.final-1080p")
+cell = cells.resolve("bench.final-2160p")
 cell.mix = dict(cell.mix, width=32, height=16, readback_every=1)
 from benchmark.harness import check
 check.CHECK_RAYS, check.MAX_TILES = 2000, 2

@@ -10,7 +10,7 @@ import pytest
 
 from benchmark.harness import cells
 
-ARGS = ["--workload", "bench.final-1080p", "--seed", "2147483711",
+ARGS = ["--workload", "bench.final-2160p", "--seed", "2147483711",
         "--seconds", "1", "--trace", "0"]
 
 
